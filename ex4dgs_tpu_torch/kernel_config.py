@@ -1,0 +1,40 @@
+"""Rasterizer knobs the render path reads.
+
+The counterpart of `ex4dgs_tpu/kernel_config.py`, cut to the knobs this port
+uses. The JAX package binds its knobs as module globals; here a config is a
+value the caller passes (rendering.render(..., kernel_cfg=...)), so two
+configurations can live in one process.
+
+  tile_x, tile_y  tile shape in pixels (default 32x16; the golden render
+                  pins 16x16, the reference's own tile)
+  exact_sort      binning depth order: False = packed 31-bit key (ties
+                  within ~2^-10 relative depth blend in Gaussian order),
+                  True = exact (tile, float depth) order
+
+Tiles become the image by compositing.tiles_to_image, the JAX package's
+default ("naive") assembly; it has no alternative here, so it is no knob.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelConfig:
+    tile_x: int = 32
+    tile_y: int = 16
+    exact_sort: bool = False
+
+    @property
+    def n_pix(self) -> int:
+        return self.tile_x * self.tile_y
+
+    def validate(self) -> "KernelConfig":
+        if self.tile_x < 1 or self.tile_y < 1:
+            raise ValueError(f"invalid KernelConfig {self}: tile sides must be >= 1")
+        # one CUDA thread per tile pixel: a block holds at most 1024 threads
+        if self.n_pix > 1024 or self.n_pix % 32:
+            raise ValueError(
+                f"invalid KernelConfig {self}: tile area must be a multiple "
+                "of 32 (one warp) and at most 1024 (one thread block)")
+        return self

@@ -1,0 +1,179 @@
+"""The port's package boundary: what it imports, where it runs, and what its
+kernel wrapper accepts.
+
+- No file of ex4dgs_tpu_torch/, and not chip_smoke.py, imports `jax` or the
+  JAX package `ex4dgs_tpu` (an AST scan, and a fresh interpreter that
+  imports the whole port and finds neither module loaded).
+- The entry points put their tensors on `cuda` unless given `device="cpu"`,
+  and raise where there is no CUDA device; they never fall back to the CPU.
+- `ex4dgs_tpu_torch.kernels` imports where there is no nvcc and no GPU, and
+  its wrapper refuses what the kernel does not take before anything is
+  built.
+"""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from ex4dgs_tpu_torch import kernels, rendering, synthetic
+from ex4dgs_tpu_torch.kernel_config import KernelConfig
+from ex4dgs_tpu_torch.models import state
+from ex4dgs_tpu_torch.models.config import ModelConfig
+from ex4dgs_tpu_torch.models.temporal import point_data_at_t
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "ex4dgs_tpu")
+
+
+def _port_files():
+    return sorted((ROOT / "ex4dgs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: pathlib.Path):
+    """Top-level module names of every absolute import in a file."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = _port_files()
+    assert len(files) >= 15, files  # the scan found the package
+    bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
+           for f in files}
+    assert not {f: m for f, m in bad.items() if m}
+
+
+def test_port_loads_without_jax_in_a_fresh_interpreter():
+    code = (
+        "import sys\n"
+        "import ex4dgs_tpu_torch, ex4dgs_tpu_torch.kernels, ex4dgs_tpu_torch.rendering\n"
+        "import ex4dgs_tpu_torch.synthetic, ex4dgs_tpu_torch.ops.rasterize_tiled\n"
+        "loaded = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not loaded, loaded\n"
+        "assert not ex4dgs_tpu_torch.kernels._libs\n"
+        "print('ok')\n")
+    # An empty PATH: importing the kernels module must not look for nvcc.
+    env = {**os.environ, "PATH": "", "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_precision_policy():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    """The port as it behaves on a machine without a CUDA device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _small_model():
+    model, cfg = synthetic.make_scene(n_static=200, n_dynamic=20, seed=1, device="cpu")
+    cam = synthetic.ring_cameras(1, 3.0, 64, 32, far=cfg.far, device="cpu")[0]
+    return model, cfg, cam
+
+
+def _call(entry, device, model, cfg, cam):
+    kw = {} if device is None else {"device": device}
+    if entry == "make_scene":
+        return synthetic.make_scene(n_static=50, n_dynamic=5, **kw)
+    if entry == "ring_cameras":
+        return synthetic.ring_cameras(2, 3.0, 64, 32, **kw)
+    if entry == "lookat_camera":
+        return synthetic.lookat_camera((0, 0, -3), (0, 0, 0), (0, 1, 0), 64, 32, **kw)
+    if entry == "empty_model":
+        return state.empty_model(ModelConfig(), 64, 8, **kw)
+    if entry == "model_from_numpy":
+        return state.model_from_numpy(**state.model_to_numpy(model), **kw)
+    if entry == "camera_from_numpy":
+        return rendering.RenderCamera.from_numpy(
+            cam.view.numpy(), cam.proj.numpy(), cam.campos.numpy(), cam.width, cam.height,
+            cam.tan_fovx.numpy(), cam.tan_fovy.numpy(), **kw)
+    if entry == "render":
+        return rendering.render(cam, model, cfg, t=1.0, bg=(0, 0, 0), capacity=65536, **kw)
+    if entry == "render_points":
+        return rendering.render_points(point_data_at_t(model, cfg, 1.0), cam, cfg,
+                                       bg=(0, 0, 0), capacity=65536, **kw)
+    raise AssertionError(entry)
+
+
+ENTRIES = ("make_scene", "ring_cameras", "lookat_camera", "empty_model", "model_from_numpy",
+           "camera_from_numpy", "render", "render_points")
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry):
+    model, cfg, cam = _small_model()
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            _call(entry, device, model, cfg, cam)
+    out = _call(entry, "cpu", model, cfg, cam)
+    if entry == "render":
+        assert out.render.device.type == "cpu" and int(out.binning_total) > 0
+        assert float(out.acc.max()) > 0.0
+
+
+def test_render_refuses_tensors_on_another_device():
+    model, cfg, cam = _small_model()
+    with pytest.raises(ValueError, match="the render runs on"):
+        rendering.render(cam, model, cfg, t=1.0, bg=(0, 0, 0), device="meta")
+
+
+def _wrapper_args(capacity=256, tiles=6):
+    data = torch.zeros((16, capacity), dtype=torch.float32)
+    gid = torch.zeros(capacity, dtype=torch.int32)
+    starts = torch.zeros(tiles, dtype=torch.int32)
+    stops = torch.zeros(tiles, dtype=torch.int32)
+    return [data, gid, starts, stops]
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape", "gid_shape", "strided", "tile", "cpu"])
+def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(fault):
+    """Every refusal happens before anything is built, so it holds here,
+    where there is no nvcc; a CPU tensor is refused by the wrapper itself
+    (the plain version is composite_tiles_fwd's business, not the
+    kernel's)."""
+    args = _wrapper_args()
+    kw = dict(grid_x=3, tile_x=32, tile_y=16, track_idx=True)
+    if fault == "dtype":
+        args[0] = args[0].double()
+    elif fault == "shape":
+        args[0] = args[0][:14]
+    elif fault == "gid_shape":
+        args[1] = args[1][:-1]
+    elif fault == "strided":
+        args[2] = torch.zeros(12, dtype=torch.int32)[::2]
+    elif fault == "tile":
+        kw.update(tile_x=10, tile_y=10)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError):
+        kernels.composite_fwd(*args, **kw)
+    assert kernels.launches == before and not kernels._libs
+
+
+def test_kernel_config_validation():
+    assert KernelConfig().validate().n_pix == 512
+    assert KernelConfig(tile_x=16, tile_y=16).validate().n_pix == 256
+    for bad in (dict(tile_x=0), dict(tile_y=0), dict(tile_x=64, tile_y=32),
+                dict(tile_x=5, tile_y=5)):
+        with pytest.raises(ValueError):
+            KernelConfig(**bad).validate()
+
+
+def test_launch_counter_reset():
+    kernels.launches["composite_fwd"] += 3
+    kernels.reset_launches()
+    assert kernels.launches == {"composite_fwd": 0}
