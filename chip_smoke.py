@@ -1,30 +1,50 @@
-"""Drive the PyTorch/CUDA port's render path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's render and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure ends the script with a non-zero exit and no result line):
 
-1. build: compile every CUDA kernel of the render path from
-   ex4dgs_tpu_torch/csrc/ with nvcc (sm_90a), print the build time and
-   ptxas' register/shared-memory report.
+1. build: compile every CUDA kernel from ex4dgs_tpu_torch/csrc/ with nvcc
+   (sm_90a), one nvcc per source, all started together; print the build time
+   and ptxas' register/shared-memory report.
 2. scene: the bench scene of bench.py at full width (100k static + 10k
    dynamic splats, 1352x1014, scaling clamped to log(0.02)); the instance
    buffer is sized as bench.py sizes it (probe at 2M, then
    round_capacity(total * 5 // 4, 65536)).
-3. kernel vs plain: one frame's packed instances go through the
+3. forward kernel vs plain: one frame's packed instances go through the
    forward-compositing kernel and through its plain PyTorch version on the
    card; accum and tfinal must agree within 2e-5, the normalised depth
    within 1e-4 and the dominant ids on >= 99.9% of pixels. Both are timed
    with CUDA events, and the least time the card could take for the same
    work is computed from this frame's data.
-4. main path: rendering.render at t = 0, 1, 2.5, 4, 7.5 with track_idx True
-   and False, then the FPS recipe of eval/render_sets.py (per-call host
-   timing ending in torch.cuda.synchronize, warm-up calls dropped). Every
-   launch counter is set to 0 just before and read just after; each kernel
-   of the path must have launched, every output must be finite, no frame may
-   overflow its capacity and no image may be all background.
-5. reference: a small scene rendered on the card and on the CPU (plain
-   path) must agree.
+4. render path: rendering.render at t = 0, 1, 2.5, 4, 7.5 with track_idx
+   True and False, then the FPS recipe of eval/render_sets.py (per-call host
+   timing ending in torch.cuda.synchronize, warm-up calls dropped). The
+   launch counters are set to 0 just before and read just after; the
+   forward kernel must have launched once per render, every output must be
+   finite, no frame may overflow its capacity and no image may be all
+   background.
+5. backward kernel vs plain: the same frame, kernel A's accum and tfinal,
+   and seeded O(1) cotangents go through the backward-compositing kernel
+   and its plain version; element by element |kernel - plain| <= 1e-5 |plain|
+   + 1e-6 max |plain| of its row group (xy, conic, opacity, features),
+   columns outside every tile's range exactly zero, two launches bit-equal.
+   Timed and bounded as in phase 3.
+6. training path: train.step.train_step at full width (OptimizationConfig
+   defaults, spatial_lr_scale 3.0, gt zeros, t = i % 5, iteration 100, the
+   train step of bench.py), 31 steps carrying model and optimizer state.
+   Every step must launch each kernel exactly once (counters reset before
+   each step), give a finite loss and finite params, not overflow and leave
+   nan_flag false; the loss after the last step (t = 0) must be below the
+   first's (t = 0).
+7. determinism: two train_steps from the same state give bit-equal params,
+   moments and stats.
+8. timing: train ms/iteration by bench.py's recipe (20 iterations from one
+   state, best of 3 windows, each ending in torch.cuda.synchronize), and a
+   torch.profiler breakdown of one step.
+9. reference: a small scene rendered, and trained one step, on the card and
+   on the CPU (plain path) must agree.
 
 The lines before the last are the card's name and power limit (as
 nvidia-smi prints them) and a JSON object with one entry per kernel; the
@@ -39,6 +59,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # Card peaks used for the bound (NVIDIA H100 SXM data sheet, 132 SMs at the
@@ -59,6 +80,21 @@ SFU_OPS_S = 132 * 16 * 1.98e9
 # best-weight test: 13. Loop, index and shared-memory instructions are not
 # counted, so the bound stays a lower bound.
 SLOTS_EVAL, SLOTS_APPLIED = 15, 13
+# csrc/composite_bwd.cu: an evaluated pair costs the forward's 15; an applied
+# pair the transmittance update and weight (4), the colour prefix and dot
+# (3 + 3), S_i (4), dL/dalpha (5, the division counted as 1), the opacity
+# and power terms (2), the five geometry rows (14) and the eight feature
+# rows (8): 43, plus one add per gradient row into its instance's sum (14),
+# the least any reduction over the pixels needs. Its SFU work: the exp of
+# every evaluated pair and the reciprocal of every applied one.
+SLOTS_EVAL_B, SLOTS_APPLIED_B = 15, 57
+BWD_ROWS = {"xy": slice(0, 2), "conic": slice(2, 5), "opacity": slice(5, 6),
+            "features": slice(6, 14)}
+# Kernel B sums each instance's pixels in another order than its plain
+# version: an element may differ by BWD_RTOL of itself plus BWD_ATOL of its
+# row group's largest magnitude.
+BWD_RTOL, BWD_ATOL = 1e-5, 1e-6
+TRAIN_STEPS = 31  # t = i % 5: the first and the last step both render t = 0
 
 TIMESTAMPS = (0.0, 1.0, 2.5, 4.0, 7.5)
 W, H = 1352, 1014
@@ -98,10 +134,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def profile_frames(frame, n: int = 3, top: int = 12):
-    """Where a frame's time goes: torch.profiler over n frames. Returns
-    (wall ms per frame under the profiler, device ms per frame, [(kernel,
-    device ms per frame, launches per frame)] for the `top` kernels by
-    device time), or None when the profiler saw no device time."""
+    """Where a call's time goes: torch.profiler over n calls. Returns
+    (wall ms per call under the profiler, device ms per call, device
+    events per call, [(kernel, device ms per call, launches per call)] for
+    the `top` kernels by device time), or None when the profiler saw no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -120,7 +157,25 @@ def profile_frames(frame, n: int = 3, top: int = 12):
     if not rows:
         return None
     rows.sort(key=lambda r: -r[1])
-    return wall_ms, sum(r[1] for r in rows), rows[:top]
+    return wall_ms, sum(r[1] for r in rows), sum(r[2] for r in rows), rows[:top]
+
+
+def report_profile(what: str, fn, card: str) -> None:
+    """Log profile_frames' breakdown of fn and the peak memory since the
+    last reset."""
+    breakdown = profile_frames(fn)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if breakdown is None:
+        log(f"# profile {what}: device time not measured (the profiler saw no device "
+            f"activity); peak memory {peak_gib:.2f} GiB")
+        return
+    wall_p, dev_p, n_events, rows = breakdown
+    log(f"# profile {what} (torch.profiler, 3 calls): {wall_p:.3f} ms/call wall under the "
+        f"profiler, {dev_p:.3f} ms/call device busy ({100 * dev_p / wall_p:.1f}%) in "
+        f"{n_events:.0f} device kernels and copies per call, peak memory {peak_gib:.2f} GiB; "
+        f"{card}")
+    for name, ms_k, count in rows:
+        log(f"#   {ms_k:8.4f} ms  x{count:5.1f}  {name[:100]}")
 
 
 def walked_pairs(data, starts, stops, grid_x, tile_x, tile_y, chunk=64, tile_batch=1024):
@@ -158,18 +213,33 @@ def walked_pairs(data, starts, stops, grid_x, tile_x, tile_y, chunk=64, tile_bat
     return evaluated, applied
 
 
+def bound_of(nbytes: float, slots: float, sfu_ops: float):
+    """(bound ms, bound_by, its three parts in ms): the least time for the
+    work, the larger of bytes over the memory rate and operations over the
+    fp32 and SFU rates."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_fp32 = slots / FP32_SLOTS_S * 1e3
+    t_sfu = sfu_ops / SFU_OPS_S * 1e3
+    by = "bytes" if t_bytes >= max(t_fp32, t_sfu) else "operations"
+    return max(t_bytes, t_fp32, t_sfu), by, (t_bytes, t_fp32, t_sfu)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
     import ex4dgs_tpu_torch  # noqa: F401  (sets the precision policy)
     from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch.models.config import OptimizationConfig
+    from ex4dgs_tpu_torch.models.optimizer import init_state
     from ex4dgs_tpu_torch.models.state import round_capacity
     from ex4dgs_tpu_torch.models.temporal import point_data_at_t
     from ex4dgs_tpu_torch.ops.binning import bin_gaussians
     from ex4dgs_tpu_torch.ops.projection import tile_grid
-    from ex4dgs_tpu_torch.ops.rasterize_cuda import composite_tiles_plain, pack_sorted
+    from ex4dgs_tpu_torch.ops.rasterize_cuda import (composite_tiles_bwd_plain,
+                                                     composite_tiles_plain, pack_sorted)
     from ex4dgs_tpu_torch.rendering import preprocess_points, render
     from ex4dgs_tpu_torch.synthetic import make_scene, ring_cameras
+    from ex4dgs_tpu_torch.train.step import StepStatics, train_step
 
     dev = torch.device("cuda")
     card = card_line()
@@ -178,9 +248,9 @@ def main() -> int:
 
     # -- 1. build --------------------------------------------------------
     t0 = time.perf_counter()
-    for name in kernels.launches:
-        kernels.load(name)
-    log(f"# build: {len(kernels.launches)} kernel(s) in {time.perf_counter() - t0:.2f} s")
+    kernels.load_all()
+    log(f"# build: {len(kernels.launches)} kernel(s) in {time.perf_counter() - t0:.2f} s "
+        "(one nvcc per source, in parallel)")
     for name, text in kernels.build_logs.items():
         for line in text.strip().splitlines():
             log(f"#   {name}: {line.strip()}")
@@ -202,7 +272,7 @@ def main() -> int:
         f"{total} instances at t=1 (capacity {capacity}), built in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    # -- 3. kernel vs plain ---------------------------------------------
+    # -- 3. forward kernel vs plain ------------------------------------
     tx, ty = 32, 16
     gx, gy = tile_grid(W, H, tx, ty)
     pts = point_data_at_t(model, cfg, 1.0)
@@ -234,6 +304,7 @@ def main() -> int:
         fail("composite_fwd disagrees with its plain version")
     if not bool((idx_k >= -1).all()) or int(idx_k.max().item()) >= proj.xy.shape[0]:
         fail("composite_fwd wrote an id outside [-1, P)")
+    del acc_p, tf_p, idx_p
 
     ms = cuda_ms(lambda: kernels.composite_fwd(*args, **kw), reps=20)
     ms_noidx = cuda_ms(lambda: kernels.composite_fwd(*args, **{**kw, "track_idx": False}),
@@ -243,17 +314,14 @@ def main() -> int:
     n_inst = int(stops[-1].item() - starts[0].item())
     T, npix = starts.shape[0], tx * ty
     nbytes = 14 * 4 * n_inst + 4 * n_inst + 2 * 4 * T + T * npix * (8 + 1 + 1) * 4
-    slots = SLOTS_EVAL * evaluated + SLOTS_APPLIED * applied
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_fp32 = slots / FP32_SLOTS_S * 1e3
-    t_sfu = evaluated / SFU_OPS_S * 1e3
-    bound_ms = max(t_bytes, t_fp32, t_sfu)
+    bound_ms, bound_by, (t_bytes, t_fp32, t_sfu) = bound_of(
+        nbytes, SLOTS_EVAL * evaluated + SLOTS_APPLIED * applied, evaluated)
     log(f"# composite_fwd: {ms:.4f} ms/frame (track_idx=False {ms_noidx:.4f}), plain "
         f"{plain_ms:.2f} ms; {n_inst} instances in {T} tiles; pairs evaluated {evaluated}, "
         f"applied {applied}; bound {bound_ms:.4f} ms (bytes {t_bytes:.4f}, fp32 "
         f"{t_fp32:.4f}, sfu exp {t_sfu:.4f}); {card}")
 
-    # -- 4. main path ----------------------------------------------------
+    # -- 4. render path ----------------------------------------------------
     def frame(t, track_idx):
         return render(cam, model, cfg, t=t, bg=bg, capacity=capacity, track_idx=track_idx,
                       device=dev)
@@ -264,7 +332,6 @@ def main() -> int:
 
     kernels.reset_launches()
     n_frames = 0
-    sweep = []
     for t in TIMESTAMPS:
         for track_idx in (True, False):
             t0 = time.perf_counter()
@@ -285,7 +352,6 @@ def main() -> int:
                 fail("track_idx=False must give idx all -1")
             if track_idx and not bool((idx >= 0).any()):
                 fail(f"t={t}: no dominant contributor anywhere")
-            sweep.append((t, track_idx, tot, dt))
             log(f"# render t={t} track_idx={track_idx}: {tot} instances, {dt:.3f} ms, "
                 f"acc mean {res.acc.mean().item():.4f}")
 
@@ -301,35 +367,146 @@ def main() -> int:
                     times.append(time.perf_counter() - t0)
                 n_frames += 1
         fps[track_idx] = statistics.mean(times) * 1e3
-    launches = dict(kernels.launches)
-    log(f"# main path: {n_frames} renders, launches {launches}")
-    for name, n in launches.items():
-        if n < n_frames:
-            fail(f"kernel {name} launched {n} times in {n_frames} renders")
+    render_launches = dict(kernels.launches)
+    log(f"# render path: {n_frames} renders, launches {render_launches}")
+    if render_launches["composite_fwd"] != n_frames:
+        fail(f"composite_fwd launched {render_launches['composite_fwd']} times in "
+             f"{n_frames} renders")
     for track_idx, ms_f in fps.items():
         log(f"# FPS recipe t=1 track_idx={track_idx}: {ms_f:.3f} ms/frame, "
             f"{W * H / ms_f / 1e3:.2f} Mpix/s, {1e3 / ms_f:.1f} FPS; {card}")
     torch.cuda.reset_peak_memory_stats()
-    breakdown = profile_frames(lambda: frame(1.0, True))
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    if breakdown is None:
-        log("# profile t=1 track_idx=True: device time not measured (the profiler "
-            f"saw no device activity); peak memory {peak_gib:.2f} GiB")
-    else:
-        wall_p, dev_p, rows = breakdown
-        log(f"# profile t=1 track_idx=True (torch.profiler, 3 frames): {wall_p:.3f} ms/frame "
-            f"wall under the profiler, {dev_p:.3f} ms/frame device busy "
-            f"({100 * dev_p / wall_p:.1f}%), peak memory {peak_gib:.2f} GiB; {card}")
-        for name, ms_k, count in rows:
-            log(f"#   {ms_k:8.4f} ms  x{count:5.1f}  {name[:100]}")
+    report_profile("render t=1 track_idx=True", lambda: frame(1.0, True), card)
 
-    # -- 5. reference on a small input ----------------------------------
-    small = {}
+    # -- 5. backward kernel vs plain -------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gacc = torch.randn(acc_k.shape, device=dev, generator=gen)
+    gend = torch.randn(tf_k.shape, device=dev, generator=gen)
+    acdot = (acc_k[..., 0:3] * gacc[..., 0:3]).sum(-1, keepdim=True)
+    bargs = (data.detach(), starts, stops, gacc, acdot, gend, tf_k)
+    bkw = dict(grid_x=gx, tile_x=tx, tile_y=ty)
+    d_k = kernels.composite_bwd(*bargs, **bkw)
+    d_k2 = kernels.composite_bwd(*bargs, **bkw)
+    d_p = composite_tiles_bwd_plain(*bargs, **bkw)
+    torch.cuda.synchronize()
+    lo, hi = int(starts[0].item()), int(stops[-1].item())
+    errs, worst, median, floor = {}, {}, {}, {}
+    for name, rows in BWD_ROWS.items():
+        ref = d_p[rows, lo:hi]
+        diff = (d_k[rows, lo:hi] - ref).abs()
+        mag = ref.abs()
+        floor[name] = BWD_ATOL * mag.max().item()
+        limit = BWD_RTOL * mag + floor[name]
+        errs[name] = diff.max().item()
+        worst[name] = (diff / limit.clamp_min(1e-30)).max().item()  # <= 1 passes
+        median[name] = mag[mag > 0].median().item() if bool((mag > 0).any()) else 0.0
+    outside_zero = not (d_k[:, :lo].any() or d_k[:, hi:].any() or d_k[14:].any())
+    bit_equal = torch.equal(d_k, d_k2)
+    finite_b = bool(torch.isfinite(d_k).all())
+    log(f"# composite_bwd vs plain, per element |kernel - plain| <= {BWD_RTOL:g} |plain| + "
+        f"{BWD_ATOL:g} max |plain| per row group: "
+        + ", ".join(f"{k} max err {errs[k]:.3g}, worst err/limit {worst[k]:.3g}, floor "
+                    f"{floor[k]:.3g}, median non-zero |plain| {median[k]:.3g}" for k in errs)
+        + f"; outside the ranges zero {outside_zero}; two launches bit-equal {bit_equal}; "
+        f"finite {finite_b}")
+    if not (finite_b and outside_zero and bit_equal and max(worst.values()) <= 1.0):
+        fail("composite_bwd disagrees with its plain version")
+    err_bwd = max(errs.values())
+    del d_k2, d_p
+    ms_b = cuda_ms(lambda: kernels.composite_bwd(*bargs, **bkw), reps=20)
+    plain_ms_b = cuda_ms(lambda: composite_tiles_bwd_plain(*bargs, **bkw), reps=2, warmup=1)
+    nbytes_b = (14 + 16) * 4 * n_inst + 2 * 4 * T + T * npix * (8 + 3) * 4
+    bound_b, bound_by_b, (tb_bytes, tb_fp32, tb_sfu) = bound_of(
+        nbytes_b, SLOTS_EVAL_B * evaluated + SLOTS_APPLIED_B * applied, evaluated + applied)
+    log(f"# composite_bwd: {ms_b:.4f} ms/frame, plain {plain_ms_b:.2f} ms; pairs evaluated "
+        f"{evaluated}, applied {applied}; bound {bound_b:.4f} ms (bytes {tb_bytes:.4f}, "
+        f"fp32 {tb_fp32:.4f}, sfu {tb_sfu:.4f}); {card}")
+    del bargs, gacc, gend, acdot, d_k, acc_k, tf_k, idx_k, data, gid
+
+    # -- 6. training path ------------------------------------------------
+    statics = StepStatics(cfg=cfg, opt=OptimizationConfig(), spatial_lr_scale=3.0,
+                          capacity=capacity)
+    gt = torch.zeros((H, W, 3), device=dev)
+    state = init_state(model.params, device=dev)
+
+    def step(m, st, t):
+        return train_step(m, st, cam, gt, t, bg, 100, statics, device=dev)
+
+    step(model, state, 1.0)  # warm-up: allocator, caches
+    torch.cuda.synchronize()
+    train_launches = {name: 0 for name in kernels.launches}
+    losses = []
+    m, st = model, state
+    for i in range(TRAIN_STEPS):
+        kernels.reset_launches()
+        out = step(m, st, float(i % 5))
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        for name, n in counts.items():
+            train_launches[name] += n
+        loss = out.loss.item()
+        if counts != {"composite_fwd": 1, "composite_bwd": 1}:
+            fail(f"train step {i}: kernel launches {counts}, expected one of each")
+        if int(out.binning_total.item()) > capacity:
+            fail(f"train step {i}: {int(out.binning_total)} instances overflow {capacity}")
+        if not math.isfinite(loss) or bool(out.nan_flag):
+            fail(f"train step {i}: loss {loss}, nan_flag {bool(out.nan_flag)}")
+        if not all(bool(torch.isfinite(v).all()) for v in out.model.params.values()):
+            fail(f"train step {i}: non-finite params")
+        m, st = out.model, out.opt_state
+        losses.append(loss)
+    log(f"# training path: {TRAIN_STEPS} steps, launches {train_launches}; loss "
+        f"{losses[0]:.6f} (step 0, t=0) -> {losses[-1]:.6f} (step {TRAIN_STEPS - 1}, t=0); "
+        f"psnr {out.psnr.item():.3f} dB; optimizer step {int(st.step)}")
+    if not losses[-1] < losses[0]:
+        fail("the training loss did not fall")
+
+    # -- 7. determinism ------------------------------------------------------
+    a = step(m, st, 1.0)
+    b = step(m, st, 1.0)
+    same = all(torch.equal(a.model.params[k], b.model.params[k])
+               and torch.equal(a.opt_state.mu[k], b.opt_state.mu[k])
+               and torch.equal(a.opt_state.nu[k], b.opt_state.nu[k]) for k in m.params)
+    same = same and all(torch.equal(a.model.stats[k], b.model.stats[k]) for k in m.stats)
+    log(f"# determinism: two train steps from one state bit-equal {same}")
+    if not same:
+        fail("two train steps from the same state differ")
+    del a, b
+
+    # -- 8. timing -----------------------------------------------------------
+    def tick(i):
+        return step(model, state, float(i % 5))
+
+    for i in range(2):
+        tick(i)
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for i in range(20):
+            tick(i)
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - t0)
+    train_ms = min(windows) / 20 * 1e3
+    log(f"# train step (bench.py recipe: 20 iterations, best of 3 windows): "
+        f"{train_ms:.3f} ms/iteration, {W * H / train_ms / 1e3:.2f} Mpix/s; windows "
+        + ", ".join(f"{w * 1e3 / 20:.3f}" for w in windows) + f" ms/iteration; {card}")
+    torch.cuda.reset_peak_memory_stats()
+    report_profile("train step t=1", lambda: tick(1), card)
+
+    # -- 9. reference on a small input ------------------------------------
+    small, small_train = {}, {}
+    gt_small = torch.as_tensor(np.random.default_rng(0).uniform(size=(96, 160, 3))
+                               .astype(np.float32))
     for d in ("cuda", "cpu"):
         m_s, c_s = make_scene(n_static=3000, n_dynamic=300, duration=10.0, seed=1, device=d)
         cam_s = ring_cameras(1, 3.0, 160, 96, far=c_s.far, device=d)[0]
-        small[d] = render(cam_s, m_s, c_s, t=2.5, bg=torch.tensor([0.1, 0.2, 0.3]).to(d),
-                          capacity=65536, device=d)
+        bg_s = torch.tensor([0.1, 0.2, 0.3]).to(d)
+        small[d] = render(cam_s, m_s, c_s, t=2.5, bg=bg_s, capacity=65536, device=d)
+        st_s = StepStatics(cfg=c_s, opt=OptimizationConfig(), spatial_lr_scale=1.0,
+                           capacity=65536)
+        small_train[d] = train_step(m_s, init_state(m_s.params, device=d), cam_s,
+                                    gt_small.to(d), 2.5, bg_s, 100, st_s, device=d)
     g, c = small["cuda"], small["cpu"]
     err_small = (g.render.cpu() - c.render).abs().max().item()
     err_small_acc = (g.acc.cpu() - c.acc).abs().max().item()
@@ -339,6 +516,17 @@ def main() -> int:
         f"{int(g.binning_total)} vs {int(c.binning_total)}")
     if not (err_small <= 1e-4 and err_small_acc <= 1e-4 and agree_small >= 0.99):
         fail("the card's render of the small scene disagrees with the CPU's")
+    g, c = small_train["cuda"], small_train["cpu"]
+    loss_rel = abs(g.loss.item() - c.loss.item()) / abs(c.loss.item())
+    param_err = max((g.model.params[k].cpu() - c.model.params[k]).abs().max().item()
+                    for k in c.model.params if c.model.params[k].numel())
+    mu_rel = max((g.opt_state.mu[k].cpu() - c.opt_state.mu[k]).abs().max().item()
+                 / max(c.opt_state.mu[k].abs().max().item(), 1e-30)
+                 for k in c.model.params if c.opt_state.mu[k].abs().max().item() > 0)
+    log(f"# small scene train step, cuda vs cpu: loss rel {loss_rel:.3g} (<= 1e-5), params "
+        f"{param_err:.3g} (atol 1e-6), first moments {mu_rel:.3g} of their largest (<= 1e-3)")
+    if not (loss_rel <= 1e-5 and param_err <= 1e-6 and mu_rel <= 1e-3):
+        fail("the card's train step on the small scene disagrees with the CPU's")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -346,12 +534,24 @@ def main() -> int:
         "route": "cuda",
         "source": "ex4dgs_tpu_torch/csrc/composite_fwd.cu",
         "replaces": "ex4dgs_tpu/ops/rasterize_pallas.py:439",
-        "launches": launches["composite_fwd"],
+        "launches": render_launches["composite_fwd"] + train_launches["composite_fwd"],
         "max_abs_err": max(err_acc, err_tf),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if t_bytes >= max(t_fp32, t_sfu) else "operations",
+        "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "composite_bwd",
+        "route": "cuda",
+        "source": "ex4dgs_tpu_torch/csrc/composite_bwd.cu",
+        "replaces": "ex4dgs_tpu/ops/rasterize_pallas.py:713",
+        "launches": train_launches["composite_bwd"],
+        "max_abs_err": err_bwd,
+        "ms": ms_b,
+        "plain_ms": plain_ms_b,
+        "bound_ms": bound_b,
+        "bound_by": bound_by_b,
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,12 @@ counterpart is found by path:
 
   ops/        math3d, interpolation, knn, projection, binning, compositing,
               rasterize_tiled (the portable oracle), rasterize_cuda (the
-              forward-compositing kernel's wrapper and its plain version)
-  models/     config, capacity-padded Gaussian state, temporal queries
+              compositing kernels' wrappers, their plain versions and the
+              autograd functions), losses
+  models/     config, capacity-padded Gaussian state, temporal queries,
+              the RAdam optimizer
   rendering   the public render API
+  train/      the training step
   synthetic   synthetic scenes and cameras
 
 Entry points put their tensors on `cuda` unless the caller passes

@@ -1,5 +1,5 @@
-"""Model configuration: the port's own copy of `ex4dgs_tpu/models/config.py`
-(the parts the render path reads). Same fields, same defaults, same JSON
+"""Configuration: the port's own copy of `ex4dgs_tpu/models/config.py`
+(the model and optimization groups). Same fields, same defaults, same JSON
 overlay rule (unknown keys skipped), so one JSON config drives both packages.
 """
 from __future__ import annotations
@@ -47,6 +47,60 @@ class ModelConfig:
         if self.interp_type in ("cube", "pchip"):
             return self.time_pad + self.time_interval
         return self.time_pad
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizationConfig:
+    """Training schedule and learning rates (the reference's
+    arguments/__init__.py:90-139)."""
+
+    iterations: int = 30_000
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30_000
+    dynamic_position_lr_init: float = 0.00016
+    dynamic_position_lr_final: float = 0.000016
+    dynamic_position_lr_delay_mult: float = 0.01
+    dynamic_position_lr_max_steps: int = 30_000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.00001
+    disp_lr: float = 0.0001
+    feature_motion_lr: float = 0.0025
+    rotation_motion_lr: float = 0.001
+    opacity_motion_lr: float = 0.05
+    opacity_motion_center_lr: float = 0.001
+    opacity_motion_var_lr: float = 0.0005
+    percent_dense: float = 0.01
+    lambda_dssim: float = 0.2
+    l1_accum: bool = True
+    densification_interval: int = 200
+    opacity_reset_interval: int = 3000
+    densify_from_iter: int = 500
+    extract_from_iter: int = 500
+    densify_until_iter: int = 15_000
+    progressive_growing_steps: int = 300
+    error_base_prune_steps: int = 20000
+    ssim_prune_every: int = 5
+    l1_prune_every: int = 5
+    make_dynamic_interval: int = 200
+    extracton_interval: int = 3000
+    extract_every: int = 1
+    extract_percentile: float = 0.98
+    prune_invisible_interval: int = 6000
+    densify_grad_threshold: float = 0.0002
+    densify_dgrad_threshold: float = 0.0001
+    s_max_ssim: float = 0.6
+    s_l1_thres: float = 0.08
+    d_max_ssim: float = 0.6
+    d_l1_thres: float = 0.08
+    static_reg: float = 0.0001
+    motion_reg: float = 0.0001
+    rot_reg: float = 0.00
+    coord_reg: float = 0.00
+    random_background: bool = True
 
 
 def overlay_json(cfg: Any, json_path_or_dict) -> Any:

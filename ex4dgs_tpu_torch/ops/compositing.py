@@ -1,4 +1,4 @@
-"""Alpha-compositing core, forward semantics.
+"""Alpha-compositing core.
 
 Counterpart of `ex4dgs_tpu/ops/compositing.py`: for a depth-ordered chunk of
 Gaussians the blend weights w_i = alpha_i * prod_{j<i}(1 - alpha_j) are a
@@ -7,6 +7,14 @@ a weighted sum. Early termination (the reference's latch once
 T*(1-alpha) < 1e-4) is the prefix mask `cum >= T_EPS`: the running product
 never recovers once below it. The dominant contributor is the strictly
 greatest weight, so the earliest instance in depth order wins ties.
+
+Gradient semantics are the JAX package's, so autograd through this module
+equals `jax.grad` through its oracle:
+  * the 0.99 alpha clamp is straight-through (forward min, backward identity);
+  * only color (features[..., :3]) reaches alpha through the blend weights;
+    the aux features (depth, one, flow) are blended with detached weights;
+  * the accumulated opacity `acc` is detached, also where it normalises
+    depth and flow.
 """
 from __future__ import annotations
 
@@ -47,7 +55,8 @@ def chunk_alpha(pixf, xy, conic, opacity, contrib_ok):
     dx, dy = d[..., 0], d[..., 1]
     power = -0.5 * (conic[..., 0] * dx * dx + conic[..., 2] * dy * dy) - conic[..., 1] * dx * dy
     alpha_raw = opacity * torch.exp(torch.clamp_max(power, 0.0))
-    alpha_c = torch.clamp_max(alpha_raw, ALPHA_MAX)
+    # Straight-through clamp; the forward value is exactly min(raw, 0.99).
+    alpha_c = alpha_raw + (torch.clamp_max(alpha_raw, ALPHA_MAX) - alpha_raw).detach()
     m = contrib_ok & (power <= 0.0) & (alpha_c >= ALPHA_MIN)
     return torch.where(m, alpha_c, torch.zeros_like(alpha_c)), m
 
@@ -65,15 +74,20 @@ def blend_chunk(carry: BlendCarry, pixf, xy, conic, opacity, features, contrib_o
     cum_excl = torch.cat([cum_in, cum[..., :-1]], dim=-1)
     applied = m & (cum >= T_EPS)
     w = torch.where(applied, alpha * cum_excl, torch.zeros_like(alpha))
+    w_sg = w.detach()
 
-    # einsum broadcasts the size-1 pixel dim of `features` without copying it
-    accum = carry.accum + torch.einsum("...g,...gf->...f", w, features)
+    # einsum broadcasts the size-1 pixel dim of `features` without copying
+    # it. Color takes gradients through the weights, the aux features only
+    # through themselves.
+    accum = carry.accum + torch.cat([
+        torch.einsum("...g,...gf->...f", w, features[..., :3]),
+        torch.einsum("...g,...gf->...f", w_sg, features[..., 3:])], dim=-1)
 
     sentinel = torch.full_like(cum, T_SENTINEL)
     chunk_min = torch.amin(torch.where(applied, cum, sentinel), dim=-1)
     t_final = torch.minimum(carry.t_final, chunk_min)
 
-    chunk_max, chunk_best = torch.max(w, dim=-1)  # first index of the max
+    chunk_max, chunk_best = torch.max(w_sg, dim=-1)  # first index of the max
     chunk_id = torch.gather(ids.expand(w.shape), -1, chunk_best[..., None])[..., 0]
     better = chunk_max > carry.max_vis
     return BlendCarry(
@@ -105,7 +119,7 @@ def finalize(carry: BlendCarry, bg, max_depth: float) -> RenderOutputs:
     [r, g, b, depth, one (acc), fx, fy, fz]."""
     t_final = final_transmittance(carry)
     color = carry.accum[..., 0:3] + t_final[..., None] * bg
-    acc = carry.accum[..., 4]
+    acc = carry.accum[..., 4].detach()
     has = acc > 0.0
     denom = torch.where(has, acc, torch.ones_like(acc))
     depth = torch.where(has, carry.accum[..., 3] / denom, torch.full_like(acc, max_depth))

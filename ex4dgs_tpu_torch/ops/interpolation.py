@@ -70,7 +70,9 @@ def quat_slerp(q0, q1, t):
 def time_bigaussian(center, var, t, var_min: float):
     """Two-sided temporal opacity envelope: 1 inside the [P, 2] window
     `center`, a Gaussian falloff of width exp(var) + var_min/2.36 outside."""
-    m = torch.min(t - center, dim=1).values
+    # amin, not min: at a tie (center[:, 0] == center[:, 1]) its gradient is
+    # shared between the two ends, as jnp.min's is.
+    m = torch.amin(t - center, dim=1)
     v = torch.where(torch.any(t > center, dim=1), var[:, 1], var[:, 0])
     opa = torch.exp(-(m ** 2) / (torch.exp(v) + var_min / 2.36) ** 2)
     inside = (center[:, 0] - t) * (center[:, 1] - t) < 0

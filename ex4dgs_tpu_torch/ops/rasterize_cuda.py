@@ -1,7 +1,7 @@
-"""Forward tile compositing on the GPU: packing, the kernel's wrapper, its
-plain version, and the drop-in rasterizer.
+"""Tile compositing on the GPU: packing, the two kernels' wrappers, their
+plain versions, the autograd functions, and the drop-in rasterizer.
 
-Counterpart of the forward half of `ex4dgs_tpu/ops/rasterize_pallas.py`.
+Counterpart of `ex4dgs_tpu/ops/rasterize_pallas.py`.
 The sorted per-instance data is packed feature-major into data[16, capacity]
 (rows as in the JAX package: 0-1 xy, 2-4 conic, 5 opacity, 6-8 rgb,
 9 depth, 10-12 flow, 13 one, 14-15 zero), so a tile's instance range is a
@@ -9,10 +9,17 @@ contiguous column block of every row. The Gaussian ids travel in their own
 int32 buffer `gid`: carried as float bits in a data row, ids below ~8.4M
 would be denormals that a flush-to-zero erases.
 
-`composite_tiles_fwd` launches the CUDA kernel (csrc/composite_fwd.cu) for
-CUDA tensors and takes the plain version `composite_tiles_plain` for CPU
+`composite_tiles_fwd` launches the forward kernel (csrc/composite_fwd.cu)
+for CUDA tensors and takes the plain version `composite_tiles_plain` for CPU
 tensors; the accumulator channels of both are (r, g, b, depth, fx, fy, fz,
-one) = data rows 6-13.
+one) = data rows 6-13. `composite_tiles_bwd` does the same for the backward
+kernel (csrc/composite_bwd.cu) and `composite_tiles_bwd_plain`.
+
+Gradients: `CompositeTiles` is the custom VJP of the JAX package's
+`composite_tiles` and `PackSorted` that of its pack gather
+(`_gather_rows_t`): the per-instance gradient rows are reduced to
+per-Gaussian rows deterministically, as segment sums over the instances
+re-sorted by Gaussian, with no float atomics.
 """
 from __future__ import annotations
 
@@ -28,9 +35,39 @@ DATA_ROWS = 16
 N_ACC = 8
 
 
+class PackSorted(torch.autograd.Function):
+    """data[:, k] = rows[:, order[k]] (order clipped to [0, P)), with a
+    deterministic VJP: the cotangent columns are re-sorted by Gaussian (a
+    stable sort of `order` recovers the expansion order, whose segments
+    are [cum - counts, cum)) and each Gaussian's segment is summed as a
+    difference of a float64 inclusive prefix. Autograd of index_select
+    would scatter-add with float atomics on the GPU. Tail slots (past the
+    last instance) alias real Gaussians through the clipped order; they
+    sort after every segment and are summed into none."""
+
+    @staticmethod
+    def forward(ctx, rows, order, cum, counts):
+        ctx.save_for_backward(order, cum, counts)
+        return rows.index_select(1, order.long().clamp(0, rows.shape[1] - 1))
+
+    @staticmethod
+    def backward(ctx, ct):
+        order, cum, counts = ctx.saved_tensors
+        capacity = order.shape[0]
+        slot_s = torch.sort(order, stable=True).indices
+        pref = torch.zeros((ct.shape[0], capacity + 1), dtype=torch.float64,
+                           device=ct.device)
+        torch.cumsum(ct.index_select(1, slot_s).double(), dim=1, out=pref[:, 1:])
+        hi = cum.long().clamp(0, capacity)
+        lo = (cum - counts).long().clamp(0, capacity)
+        d_rows = (pref.index_select(1, hi) - pref.index_select(1, lo)).float()
+        return d_rows, None, None, None
+
+
 def pack_sorted(proj: Projected, colors, flow, binning: Binning):
     """(data f32 [16, capacity], gid i32 [capacity]): per-instance rows in
-    sorted order, and each instance's Gaussian id."""
+    sorted order, and each instance's Gaussian id. Differentiable in the
+    projected quantities, colors and flow through PackSorted."""
     P = proj.xy.shape[0]
     opac = proj.opacity * proj.valid
     ones = torch.ones_like(opac)
@@ -44,8 +81,8 @@ def pack_sorted(proj: Projected, colors, flow, binning: Binning):
         flow[:, 0], flow[:, 1], flow[:, 2],
         ones, zeros, zeros,
     ], dim=0)  # [16, P]
-    g = binning.order.long().clamp(0, P - 1)
-    data = rows.index_select(1, g)  # feature-major [16, capacity], no transpose
+    # feature-major [16, capacity], no transpose
+    data = PackSorted.apply(rows, binning.order, binning.cum, binning.counts)
     return data, binning.order.to(torch.int32).contiguous()
 
 
@@ -92,20 +129,153 @@ def composite_tiles_plain(data, gid, starts, stops, *, grid_x: int, tile_x: int 
     return accum, tfinal, bestidx
 
 
+def composite_tiles_bwd(data, starts, stops, gacc, acdot, gend, tfinal, *, grid_x: int,
+                        tile_x: int = 32, tile_y: int = 16):
+    """Per-instance gradient rows dgrad f32 [16, capacity] of the forward
+    composite, from the cotangents gacc f32 [T, P, 8] (of accum, with the
+    color cotangent folded in), acdot = accum[..., :3] . gacc[..., :3],
+    gend = the cotangent of tfinal (color's included), and the forward's
+    tfinal, all [T, P, 1]. Rows: 0-1 dxy, 2-4 dconic, 5 dopacity, 6-13
+    dfeat, 14-15 zero; columns outside every tile's range are zero.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version."""
+    if data.device.type == "cpu":
+        return composite_tiles_bwd_plain(data, starts, stops, gacc, acdot, gend, tfinal,
+                                         grid_x=grid_x, tile_x=tile_x, tile_y=tile_y)
+    return kernels.composite_bwd(data, starts, stops, gacc, acdot, gend, tfinal,
+                                 grid_x=grid_x, tile_x=tile_x, tile_y=tile_y)
+
+
+def composite_tiles_bwd_plain(data, starts, stops, gacc, acdot, gend, tfinal, *,
+                              grid_x: int, tile_x: int = 32, tile_y: int = 16,
+                              chunk: int = 64, tile_batch: int = 256):
+    """The backward kernel's plain PyTorch version, same signature and
+    outputs: the closed form of the blend's gradient, walked `tile_batch`
+    tiles and `chunk` instances at a time like composite_tiles_plain. Per
+    pixel and applied instance i (applied: before the pixel's latch):
+
+      dL/dalpha_i = T_i (c_i . gc) - (S_i + tfinal gend) / max(1 - alpha_i, 0.01)
+      S_i         = acdot - sum_{j <= i} w_j (c_j . gc)
+      dL/dpower_i = opacity_i e^power_i dL/dalpha_i   (straight-through clamp)
+      dL/dopac_i  = e^power_i dL/dalpha_i
+      dfeat_i     = w_i gacc
+
+    and every row is summed over the tile's pixels. No autograd graph."""
+    dev = data.device
+    T = starts.shape[0]
+    capacity = data.shape[1]
+    rows = data[:14].t()  # [capacity, 14]
+    pixf = tile_pixels(grid_x, T // grid_x, tile_x, tile_y, dev)  # [T, P, 2]
+    lanes = torch.arange(chunk, dtype=torch.int32, device=dev)[None, :]
+    dgrad = torch.zeros((DATA_ROWS, capacity), dtype=torch.float32, device=dev)
+    for b in range(0, T, tile_batch):
+        s = slice(b, b + tile_batch)
+        st, sp = starts[s], stops[s]
+        longest = int((sp - st).max().item()) if st.numel() else 0
+        gac = gacc[s]  # [B, P, 8]
+        gc = gac[..., None, 0:3]  # [B, P, 1, 3]
+        acd = acdot[s]  # [B, P, 1]
+        tf_term = tfinal[s] * gend[s]  # [B, P, 1]
+        pix = pixf[s][:, :, None, :]  # [B, P, 1, 2]
+        cum_in = torch.ones(acd.shape, dtype=torch.float32, device=dev)
+        pref = torch.zeros_like(cum_in)
+        for j in range(-(-longest // chunk)):
+            idx = st[:, None] + j * chunk + lanes  # [B, C]
+            ok = idx < sp[:, None]
+            ic = idx.clamp(0, capacity - 1).long()
+            r = rows[ic][:, None]  # [B, 1, C, 14]
+            dx = r[..., 0] - pix[..., 0]  # [B, P, C]
+            dy = r[..., 1] - pix[..., 1]
+            ca, cb, cc, op = r[..., 2], r[..., 3], r[..., 4], r[..., 5]
+            power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+            e = torch.exp(torch.clamp_max(power, 0.0))
+            alpha_c = torch.clamp_max(op * e, comp.ALPHA_MAX)
+            m = ok[:, None] & (power <= 0.0) & (alpha_c >= comp.ALPHA_MIN)
+            zero = torch.zeros((), device=dev)
+            alpha = torch.where(m, alpha_c, zero)
+            cum = cum_in * torch.cumprod(1.0 - alpha, dim=-1)
+            cum_excl = torch.cat([cum_in, cum[..., :-1]], dim=-1)
+            applied = m & (cum >= comp.T_EPS)
+            w = torch.where(applied, alpha * cum_excl, zero)
+            # Lanes past the range read a neighbour's rows; zero them so a
+            # non-finite row there cannot reach a sum through a zero weight.
+            feats = torch.where(ok[:, None, :, None], r[..., 6:14], zero)
+            cdot = (feats[..., 0:3] * gc).sum(-1)  # [B, P, C]
+            incl = torch.cumsum(w * cdot, dim=-1) + pref
+            dl_dalpha = torch.where(
+                applied,
+                cum_excl * cdot - (acd - incl + tf_term) / torch.clamp_min(1.0 - alpha, 0.01),
+                zero)
+            e_term = e * dl_dalpha
+            dlp = op * e_term
+            g = torch.stack([
+                (-(ca * dx + cb * dy) * dlp).sum(1),
+                (-(cc * dy + cb * dx) * dlp).sum(1),
+                (-0.5 * dx * dx * dlp).sum(1),
+                (-dx * dy * dlp).sum(1),
+                (-0.5 * dy * dy * dlp).sum(1),
+                e_term.sum(1),
+            ], dim=-1)  # [B, C, 6]
+            dfeat = torch.einsum("bpc,bpf->bcf", w, gac)  # [B, C, 8]
+            vals = torch.cat([g, dfeat], dim=-1)[ok]  # [n_ok, 14]
+            dgrad[:14, idx[ok].long()] = vals.t()
+            cum_in = cum[..., -1:]
+            pref = incl[..., -1:]
+    return dgrad
+
+
+class CompositeTiles(torch.autograd.Function):
+    """The compositing step with its closed-form gradient: the counterpart
+    of the JAX package's `composite_tiles` custom VJP.
+
+    Forward: (color [T, P, 3], accum [T, P, 8], tfinal [T, P, 1],
+    bestidx [T, P, 1]) from composite_tiles_fwd, color = accum[..., :3] +
+    tfinal * bg. Backward: the color cotangent folds into the accum and
+    tfinal cotangents and composite_tiles_bwd gives the per-instance rows,
+    zero outside [starts[0], stops[-1]) (the tail slots alias real Gaussians
+    through the clipped order, so they must carry nothing)."""
+
+    @staticmethod
+    def forward(ctx, data, bg, gid, starts, stops, grid_x, tile_x, tile_y, track_idx):
+        accum, tfinal, bestidx = composite_tiles_fwd(
+            data, gid, starts, stops, grid_x=grid_x, tile_x=tile_x, tile_y=tile_y,
+            track_idx=track_idx)
+        color = accum[..., 0:3] + tfinal * bg
+        ctx.save_for_backward(data, bg, accum, tfinal, starts, stops)
+        ctx.grid = (grid_x, tile_x, tile_y)
+        ctx.mark_non_differentiable(bestidx)
+        return color, accum, tfinal, bestidx
+
+    @staticmethod
+    def backward(ctx, g_color, g_accum, g_tfinal, _g_bestidx):
+        data, bg, accum, tfinal, starts, stops = ctx.saved_tensors
+        grid_x, tile_x, tile_y = ctx.grid
+        gacc = g_accum.clone()
+        gacc[..., 0:3] += g_color
+        gend = (g_color * bg).sum(-1, keepdim=True) + g_tfinal
+        acdot = (accum[..., 0:3] * gacc[..., 0:3]).sum(-1, keepdim=True)
+        dgrad = composite_tiles_bwd(data, starts, stops, gacc.contiguous(),
+                                    acdot.contiguous(), gend.contiguous(), tfinal,
+                                    grid_x=grid_x, tile_x=tile_x, tile_y=tile_y)
+        g_bg = (g_color * tfinal).sum((0, 1)) if ctx.needs_input_grad[1] else None
+        return dgrad, g_bg, None, None, None, None, None, None, None
+
+
 def rasterize_tiled_cuda(proj: Projected, colors, flow, binning: Binning, *, width: int,
                          height: int, bg, max_depth: float, tile_x: int = 32,
                          tile_y: int = 16, track_idx: bool = True) -> comp.RenderOutputs:
     """Drop-in for ops.rasterize_tiled.rasterize_tiled that composites with
-    the kernel (plain version on the CPU). track_idx=False skips the
+    the kernels (plain versions on the CPU), differentiable through
+    CompositeTiles and PackSorted. track_idx=False skips the
     dominant-contributor bookkeeping; `idx` then comes back all -1."""
     grid_x = (width + tile_x - 1) // tile_x
     grid_y = (height + tile_y - 1) // tile_y
     data, gid = pack_sorted(proj, colors, flow, binning)
-    accum, tfinal, bestidx = composite_tiles_fwd(
-        data, gid, binning.tile_start, binning.tile_stop, grid_x=grid_x, tile_x=tile_x,
-        tile_y=tile_y, track_idx=track_idx)
-    color = accum[..., 0:3] + tfinal * bg
-    acc = accum[..., 7]
+    color, accum, tfinal, bestidx = CompositeTiles.apply(
+        data, bg, gid, binning.tile_start, binning.tile_stop, grid_x, tile_x, tile_y,
+        track_idx)
+    acc = accum[..., 7].detach()
     has = acc > 0.0
     denom = torch.where(has, acc, torch.ones_like(acc))
     depth = torch.where(has, accum[..., 3] / denom, torch.full_like(acc, max_depth))

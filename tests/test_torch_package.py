@@ -21,9 +21,11 @@ import torch
 
 from ex4dgs_tpu_torch import kernels, rendering, synthetic
 from ex4dgs_tpu_torch.kernel_config import KernelConfig
-from ex4dgs_tpu_torch.models import state
-from ex4dgs_tpu_torch.models.config import ModelConfig
+from ex4dgs_tpu_torch.models import optimizer, state
+from ex4dgs_tpu_torch.models.config import ModelConfig, OptimizationConfig
 from ex4dgs_tpu_torch.models.temporal import point_data_at_t
+from ex4dgs_tpu_torch.ops import rasterize_cuda
+from ex4dgs_tpu_torch.train import step
 
 torch.set_num_threads(2)
 
@@ -57,6 +59,8 @@ def test_port_loads_without_jax_in_a_fresh_interpreter():
         "import sys\n"
         "import ex4dgs_tpu_torch, ex4dgs_tpu_torch.kernels, ex4dgs_tpu_torch.rendering\n"
         "import ex4dgs_tpu_torch.synthetic, ex4dgs_tpu_torch.ops.rasterize_tiled\n"
+        "import ex4dgs_tpu_torch.train.step, ex4dgs_tpu_torch.ops.losses\n"
+        "import ex4dgs_tpu_torch.models.optimizer\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not loaded, loaded\n"
@@ -107,11 +111,19 @@ def _call(entry, device, model, cfg, cam):
     if entry == "render_points":
         return rendering.render_points(point_data_at_t(model, cfg, 1.0), cam, cfg,
                                        bg=(0, 0, 0), capacity=65536, **kw)
+    if entry == "init_state":
+        return optimizer.init_state(model.params, **kw)
+    if entry == "train_step":
+        statics = step.StepStatics(cfg=cfg, opt=OptimizationConfig(), spatial_lr_scale=1.0,
+                                   capacity=65536)
+        return step.train_step(model, optimizer.init_state(model.params, device="cpu"), cam,
+                               torch.zeros((cam.height, cam.width, 3)), 1.0, (0, 0, 0), 1,
+                               statics, **kw)
     raise AssertionError(entry)
 
 
 ENTRIES = ("make_scene", "ring_cameras", "lookat_camera", "empty_model", "model_from_numpy",
-           "camera_from_numpy", "render", "render_points")
+           "camera_from_numpy", "render", "render_points", "init_state", "train_step")
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -124,6 +136,8 @@ def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry):
     if entry == "render":
         assert out.render.device.type == "cpu" and int(out.binning_total) > 0
         assert float(out.acc.max()) > 0.0
+    if entry == "train_step":
+        assert out.model.device.type == "cpu" and bool(torch.isfinite(out.loss))
 
 
 def test_render_refuses_tensors_on_another_device():
@@ -164,6 +178,56 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(fault):
     assert kernels.launches == before and not kernels._libs
 
 
+def _bwd_args(capacity=256, tiles=6, npix=512):
+    f32 = dict(dtype=torch.float32)
+    return [torch.zeros((16, capacity), **f32), torch.zeros(tiles, dtype=torch.int32),
+            torch.zeros(tiles, dtype=torch.int32), torch.zeros((tiles, npix, 8), **f32),
+            torch.zeros((tiles, npix, 1), **f32), torch.zeros((tiles, npix, 1), **f32),
+            torch.zeros((tiles, npix, 1), **f32)]
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape", "gacc_shape", "acdot_shape", "strided",
+                                   "tile", "cpu"])
+def test_backward_kernel_wrapper_refuses_what_the_kernel_does_not_take(fault):
+    """As for the forward wrapper: kernels.composite_bwd refuses before
+    anything is built, and counts no launch."""
+    args = _bwd_args()
+    kw = dict(grid_x=3, tile_x=32, tile_y=16)
+    if fault == "dtype":
+        args[3] = args[3].double()
+    elif fault == "shape":
+        args[0] = args[0][:14]
+    elif fault == "gacc_shape":
+        args[3] = args[3][:, :, :7]
+    elif fault == "acdot_shape":
+        args[4] = args[4][:, :256]
+    elif fault == "strided":
+        args[1] = torch.zeros(12, dtype=torch.int32)[::2]
+    elif fault == "tile":
+        kw.update(tile_x=10, tile_y=10)
+        args = _bwd_args(npix=100)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError):
+        kernels.composite_bwd(*args, **kw)
+    assert kernels.launches == before and not kernels._libs
+
+
+def test_backward_on_cpu_tensors_takes_the_plain_version():
+    """composite_tiles_bwd on CPU tensors runs the plain version, counts no
+    launch, and leaves columns outside every range zero."""
+    args = _bwd_args(capacity=64, tiles=2, npix=512)
+    args[0][:14] = 1.0
+    args[1][:] = torch.tensor([0, 10], dtype=torch.int32)
+    args[2][:] = torch.tensor([10, 20], dtype=torch.int32)
+    args[3][:] = 0.5
+    before = dict(kernels.launches)
+    dgrad = rasterize_cuda.composite_tiles_bwd(*args, grid_x=2, tile_x=32, tile_y=16)
+    assert kernels.launches == before
+    assert dgrad.shape == (16, 64) and not dgrad[:, 20:].any() and not dgrad[14:].any()
+    assert torch.equal(dgrad, rasterize_cuda.composite_tiles_bwd_plain(
+        *args, grid_x=2, tile_x=32, tile_y=16))
+
+
 def test_kernel_config_validation():
     assert KernelConfig().validate().n_pix == 512
     assert KernelConfig(tile_x=16, tile_y=16).validate().n_pix == 256
@@ -175,5 +239,6 @@ def test_kernel_config_validation():
 
 def test_launch_counter_reset():
     kernels.launches["composite_fwd"] += 3
+    kernels.launches["composite_bwd"] += 2
     kernels.reset_launches()
-    assert kernels.launches == {"composite_fwd": 0}
+    assert kernels.launches == {"composite_fwd": 0, "composite_bwd": 0}

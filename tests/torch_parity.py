@@ -25,17 +25,27 @@ TILES = [(32, 16), (16, 16)]
 
 
 @contextlib.contextmanager
-def jax_tiles(tile_x, tile_y):
-    """The JAX package configured for tile_x x tile_y tiles (pair=2 at 16x16,
-    its measured setting there), restored afterwards."""
+def jax_config(**knobs):
+    """The JAX package with some kernel_config knobs overridden (module
+    globals there), restored afterwards."""
     base = current()
-    pair = 2 if tile_x * tile_y <= 256 else 1
-    configure(KernelConfig(**{**base.as_dict(), "tile_x": tile_x, "tile_y": tile_y,
-                              "pair": pair}))
+    configure(KernelConfig(**{**base.as_dict(), **knobs}))
     try:
         yield
     finally:
         configure(base)
+
+
+def jax_tiles(tile_x, tile_y):
+    """The JAX package configured for tile_x x tile_y tiles (pair=2 at 16x16,
+    its measured setting there), restored afterwards."""
+    return jax_config(tile_x=tile_x, tile_y=tile_y, pair=2 if tile_x * tile_y <= 256 else 1)
+
+
+def jax_kernel_dot(mode):
+    """The JAX Pallas kernels' in-kernel dot precision ("split" is the
+    strict 2e-5 gradient contract of tests/test_pallas.py)."""
+    return jax_config(kernel_dot=mode)
 
 
 def jax_bin(proj, grid_x, grid_y, capacity, exact_depth_sort=False):
@@ -113,3 +123,38 @@ def projected_scene(n=300, seed=0, tile=(32, 16), flow_scale=0.1):
     gx, gy = tproj.tile_grid(W, H, *tile)
     return (dict(proj=proj_j, colors=colors_j, flow=jnp.asarray(flow), gx=gx, gy=gy),
             dict(proj=proj_t, colors=colors_t, flow=tt(flow), gx=gx, gy=gy))
+
+
+def backward_inputs(j, capacity, tile, seed=11, scale=1e-3):
+    """Inputs of the backward compositing step for both packages, from a
+    projected_scene `j` (call inside `jax_tiles(*tile)`): each package's
+    packed buffer, the tile ranges, and seeded cotangents (gacc [T, P, 8]
+    and gend [T, P, 1], normal with std `scale`) with acdot formed from the
+    forward's accum as the autograd function forms it, and the forward's
+    tfinal. Returns (jax dict, torch dict) with keys data, starts, stops,
+    gacc, acdot, gend, tfinal, and grid_x."""
+    from ex4dgs_tpu.ops import rasterize_pallas as jrp
+    from ex4dgs_tpu_torch.ops import rasterize_cuda as trc
+    from ex4dgs_tpu_torch.ops.binning import Binning
+    from ex4dgs_tpu_torch.ops.projection import Projected
+
+    bj = jax_bin(j["proj"], j["gx"], j["gy"], capacity)
+    data_j, _ = jrp.pack_sorted(j["proj"], j["colors"], j["flow"], bj)
+    proj = Projected(*(tt(a) for a in j["proj"]))
+    b = Binning(**{f: tt(getattr(bj, f)) for f in Binning._fields})
+    data_t, gid_t = trc.pack_sorted(proj, tt(j["colors"]), tt(j["flow"]), b)
+    accum, tfinal, _ = trc.composite_tiles_plain(
+        data_t, gid_t, b.tile_start, b.tile_stop, grid_x=j["gx"], tile_x=tile[0],
+        tile_y=tile[1], track_idx=False)
+    T, npix = accum.shape[:2]
+    rng = np.random.default_rng(seed)
+    gacc = (rng.normal(size=(T, npix, 8)) * scale).astype(np.float32)
+    gend = (rng.normal(size=(T, npix, 1)) * scale).astype(np.float32)
+    acdot = (accum[..., 0:3].numpy() * gacc[..., 0:3]).sum(-1, keepdims=True)
+    arrays = dict(gacc=gacc, acdot=acdot.astype(np.float32), gend=gend,
+                  tfinal=tfinal.numpy())
+    out_j = dict(data=data_j, starts=bj.tile_start, stops=bj.tile_stop, grid_x=j["gx"],
+                 **{k: jnp.asarray(v) for k, v in arrays.items()})
+    out_t = dict(data=data_t.detach(), starts=b.tile_start, stops=b.tile_stop,
+                 grid_x=j["gx"], **{k: tt(v) for k, v in arrays.items()})
+    return out_j, out_t
