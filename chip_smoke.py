@@ -45,6 +45,18 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    torch.profiler breakdown of one step.
 9. reference: a small scene rendered, and trained one step, on the card and
    on the CPU (plain path) must agree.
+10. probes: the layout probes P1 (`probes.unaligned`: [16, 256] windows of
+   f32[16, 2^20] from aligned and arbitrary starts) and P2
+   (`probes.outspec`: narrow against wide per-tile blocks, T = 2752) run
+   through their `main`s with the counters set to 0 just before, and every
+   probe kernel must have launched. Each kernel is then held against its
+   plain version on the card: exactly for the copies and fills, within 1e-6
+   of each tile's sum of |x| for the sums on seeded normal inputs (exactly
+   on the probe's all-ones inputs); two launches bit-equal. Each launch is
+   timed by its own CUDA events after a 512 MiB scratch write (the median
+   of 20 or 30 is reported), and no launch may beat its bytes bound by more
+   than 5% (a reading that does was served by L2, not by memory). P1 also
+   runs at kernel A's own starts: the bench frame's nonempty tile starts.
 
 The lines before the last are the card's name and power limit (as
 nvidia-smi prints them) and a JSON object with one entry per kernel; the
@@ -95,6 +107,17 @@ BWD_ROWS = {"xy": slice(0, 2), "conic": slice(2, 5), "opacity": slice(5, 6),
 # row group's largest magnitude.
 BWD_RTOL, BWD_ATOL = 1e-5, 1e-6
 TRAIN_STEPS = 31  # t = i % 5: the first and the last step both render t = 0
+# The probe kernels and the TPU kernels they replace.
+PROBE_REPLACES = {
+    "probe_unaligned": "tools/tpu_probes/_tpu_unaligned.py:19",
+    "outspec_a": "tools/tpu_probes/_tpu_outspec.py:36",
+    "outspec_b": "tools/tpu_probes/_tpu_outspec.py:59",
+    "outspec_c": "tools/tpu_probes/_tpu_outspec.py:59",
+    "outspec_d": "tools/tpu_probes/_tpu_outspec.py:81",
+    "outspec_e": "tools/tpu_probes/_tpu_outspec.py:101",
+}
+SUM_RTOL = 1e-6  # P2 d and e: of each tile's sum of |x|
+BOUND_SLACK = 1.05  # no probe launch may read above 105% of the memory rate
 
 TIMESTAMPS = (0.0, 1.0, 2.5, 4.0, 7.5)
 W, H = 1352, 1014
@@ -224,6 +247,161 @@ def bound_of(nbytes: float, slots: float, sfu_ops: float):
     return max(t_bytes, t_fp32, t_sfu), by, (t_bytes, t_fp32, t_sfu)
 
 
+def probe_line(name: str, readings, nbytes: float, slots: float, t: int, card: str,
+               extra: str) -> tuple[float, float]:
+    """Log one probe kernel's readings against its bound and fail if any
+    launch beat the bound by more than BOUND_SLACK. Returns (median ms,
+    bound ms)."""
+    bound_ms, _, (t_bytes, _, _) = bound_of(nbytes, slots, 0)
+    med, fastest = statistics.median(readings), min(readings)
+    log(f"# {name}: {med:.4f} ms median of {len(readings)} launches ({med / t * 1e3:.4f} "
+        f"us per tile or window; fastest {fastest:.4f}, slowest {max(readings):.4f}); bound "
+        f"{bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB at {HBM_BYTES_S / 1e12:.2f} TB/s), "
+        f"{100 * bound_ms / med:.1f}% of it at the median, "
+        f"{nbytes / med / 1e6:.1f} GB/s; {extra}; {card}")
+    if fastest < t_bytes / BOUND_SLACK:
+        fail(f"{name}: a launch took {fastest:.4f} ms, faster than its bytes bound "
+             f"{t_bytes:.4f} ms allows: the timing did not reach memory")
+    return med, bound_ms
+
+
+def probe_phase(dev, starts, stops, card: str) -> list[dict]:
+    """Phase 10: the probes' main path, then each probe kernel against its
+    plain version and its bound. Returns the kernels-line entries."""
+    from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch.probes import outspec, readings_ms, unaligned
+
+    # The card idled through phase 9's CPU half: 200 fills of 1 GiB (200 GiB
+    # written, ~64 ms at the memory rate) bring its clocks back up before
+    # anything is timed.
+    warm = torch.empty(2**28, device=dev)
+    warm_ms = 200 * cuda_ms(lambda: warm.fill_(1.0), reps=200, warmup=0)
+    log(f"# probes' clock warm-up: 200 GiB written in {warm_ms:.1f} ms; {card}")
+    del warm
+    kernels.reset_launches()
+    p1 = unaligned.main(device=dev)
+    p2 = outspec.main(device=dev)
+    torch.cuda.synchronize()
+    launched = dict(kernels.launches)
+    log(f"# probes' main path: launches {launched}")
+    missing = [k for k in PROBE_REPLACES if launched[k] == 0]
+    if missing:
+        fail(f"the probes' main path launched no {missing}")
+
+    def entry(name, err, med, plain, bound, library):
+        source = next(s for s, fns in kernels.SOURCES.items() if name in fns)
+        return {"name": name, "route": "cuda", "source": f"ex4dgs_tpu_torch/csrc/{source}.cu",
+                "replaces": PROBE_REPLACES[name], "launches": launched[name],
+                "max_abs_err": err, "ms": med, "plain_ms": plain, "bound_ms": bound,
+                "bound_by": "bytes", "library_ms": library}
+
+    # P1: the probe's two offset sets, and kernel A's own starts.
+    src = unaligned.make_src(device=dev)
+    n, g = src.shape[1], unaligned.G
+    offs = {label: torch.from_numpy(o).to(dev) for label, o in unaligned.offset_sets().items()}
+    offs["kernel A starts"] = starts[stops > starts].clamp(0, n - g).contiguous()
+    readings = dict(p1)
+    p1_result = {}
+    for label, o in offs.items():
+        got = kernels.probe_unaligned(src, o)
+        again = kernels.probe_unaligned(src, o)
+        want = unaligned.copy_windows_plain(src, o)
+        torch.cuda.synchronize()
+        exact, same = torch.equal(got, want), torch.equal(got, again)
+        if label not in readings:  # checked above: time without the range check
+            readings[label] = readings_ms(
+                lambda: kernels.probe_unaligned(src, o, check_range=False), dev, 20)
+        aligned16 = (o % 4 == 0).float().mean().item()
+        p1_result[label] = probe_line(
+            f"probe_unaligned [{label}]", readings[label], unaligned.window_bytes(o), 0,
+            o.shape[0], card, f"{o.shape[0]} windows, {100 * aligned16:.1f}% of starts "
+            f"16-byte aligned; equal to plain {exact}, two launches bit-equal {same}")
+        if not (exact and same):
+            fail(f"probe_unaligned [{label}] disagrees with its plain version")
+    # Aligned against unaligned in turns (a, u, u, a), so that a change of
+    # clock or of neighbours during the phase falls on both.
+    turns = {"aligned-256": [], "unaligned": []}
+    for label in ("aligned-256", "unaligned", "unaligned", "aligned-256"):
+        o = offs[label]
+        turns[label] += readings_ms(
+            lambda: kernels.probe_unaligned(src, o, check_range=False), dev, 20)
+    med_turns = {label: statistics.median(r) for label, r in turns.items()}
+    log(f"# probe_unaligned in turns (aligned, unaligned, unaligned, aligned; 40 launches "
+        f"each): aligned-256 median {med_turns['aligned-256']:.4f} ms (fastest "
+        f"{min(turns['aligned-256']):.4f}), unaligned median {med_turns['unaligned']:.4f} ms "
+        f"(fastest {min(turns['unaligned']):.4f}), unaligned / aligned "
+        f"{med_turns['unaligned'] / med_turns['aligned-256']:.3f}; {card}")
+    o = offs["unaligned"]
+    o_long = o.long()
+    plain_p1 = statistics.median(
+        readings_ms(lambda: unaligned.copy_windows_plain(src, o), dev, 5))
+    library_p1 = statistics.median(
+        readings_ms(lambda: src.unfold(1, g, 1).index_select(1, o_long), dev, 20))
+    log(f"# probe_unaligned [unaligned]: plain {plain_p1:.4f} ms, library index_select on "
+        f"the unfold view (the transposed result) {library_p1:.4f} ms; {card}")
+    med_p1, bound_p1 = p1_result["unaligned"]
+    entries = [entry("probe_unaligned", 0.0, med_p1, plain_p1, bound_p1, library_p1)]
+    del src, offs, got, again, want
+
+    # P2: the probe's shapes, its all-ones inputs and seeded normal ones.
+    t = outspec.T
+    gen = torch.Generator(device=dev).manual_seed(1)
+    normal = {"d": (torch.randn((t, outspec.N_PIX, 8), device=dev, generator=gen),
+                    *(torch.randn((t, outspec.N_PIX, 1), device=dev, generator=gen)
+                      for _ in range(3))),
+              "e": (torch.randn((t, 16, outspec.N_PIX), device=dev, generator=gen),)}
+    ones = outspec.probe_inputs(t, dev)
+
+    def outputs(fn) -> tuple:
+        out = fn()
+        return out if isinstance(out, tuple) else (out,)
+
+    wide = torch.empty((t, 16, outspec.N_PIX), device=dev)
+    narrow8 = torch.empty((t, outspec.N_PIX, 8), device=dev)
+    narrow1 = torch.empty((t, outspec.N_PIX, 1), device=dev)
+    narrow1i = torch.empty((t, outspec.N_PIX, 1), dtype=torch.int32, device=dev)
+    fills = {"b": lambda: wide.fill_(1.0), "c": lambda: narrow8.fill_(1.0),
+             "a1": lambda: narrow1.fill_(2.0), "ai": lambda: narrow1i.fill_(3)}
+    fill_ms = {k: statistics.median(readings_ms(f, dev, 20)) for k, f in fills.items()}
+    a_fills = fill_ms["c"] + fill_ms["a1"] + fill_ms["ai"]
+    log(f"# outspec_a library yardstick: three fill_ calls {fill_ms['c']:.4f} + "
+        f"{fill_ms['a1']:.4f} + {fill_ms['ai']:.4f} = {a_fills:.4f} ms (no single call); {card}")
+    adds_per_px = {"d": 8 + 3, "e": 16}  # one add per input value into the tile's sum
+    for key in "abcde":
+        name = f"outspec_{key}"
+        cases = [("ones", ones), ("normal", normal)] if key in normal else [("fill", ones)]
+        err, notes = 0.0, []
+        for kind, ins in cases:
+            kernel = outspec.calls(t, dev, ins)[key]
+            got, again = outputs(kernel), outputs(kernel)
+            want = outputs(outspec.plain_calls(t, dev, ins)[key])
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            if key in normal:
+                diff = (got[0] - want[0]).abs()
+                limit = SUM_RTOL * sum(x.abs().sum((1, 2)) for x in ins[key])
+                ok = bool((diff.amax((1, 2)) <= limit).all())
+                if kind == "ones":
+                    ok = ok and bool((got[0] == outspec.ONES_SUM[key]).all())
+                err = max(err, diff.max().item())
+                notes.append(f"{kind} inputs: max err {diff.max().item():.3g} (limit "
+                             f"{SUM_RTOL:g} of each tile's sum of |x|, smallest "
+                             f"{limit.min().item():.3g}), bit-equal {same}")
+            else:
+                ok = all(torch.equal(a, b) for a, b in zip(got, want))
+                notes.append(f"equal to plain {ok}, bit-equal {same}")
+            if not (ok and same):
+                fail(f"{name} ({kind}) disagrees with its plain version")
+        plain = statistics.median(readings_ms(outspec.plain_calls(t, dev, ones)[key], dev, 5))
+        library = fill_ms.get(key) if key in ("b", "c") else None
+        med, bound = probe_line(name, p2[key], outspec.BYTES_PER_PIXEL[key] * t * outspec.N_PIX,
+                                adds_per_px.get(key, 0) * t * outspec.N_PIX, t, card,
+                                "; ".join(notes) + f"; plain {plain:.4f} ms, library "
+                                + ("none" if library is None else f"fill_ {library:.4f} ms"))
+        entries.append(entry(name, err, med, plain, bound, library))
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -249,8 +427,8 @@ def main() -> int:
     # -- 1. build --------------------------------------------------------
     t0 = time.perf_counter()
     kernels.load_all()
-    log(f"# build: {len(kernels.launches)} kernel(s) in {time.perf_counter() - t0:.2f} s "
-        "(one nvcc per source, in parallel)")
+    log(f"# build: {len(kernels.SOURCES)} sources, {len(kernels.launches)} kernel entry points "
+        f"in {time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)")
     for name, text in kernels.build_logs.items():
         for line in text.strip().splitlines():
             log(f"#   {name}: {line.strip()}")
@@ -445,7 +623,7 @@ def main() -> int:
         for name, n in counts.items():
             train_launches[name] += n
         loss = out.loss.item()
-        if counts != {"composite_fwd": 1, "composite_bwd": 1}:
+        if counts != {**dict.fromkeys(counts, 0), "composite_fwd": 1, "composite_bwd": 1}:
             fail(f"train step {i}: kernel launches {counts}, expected one of each")
         if int(out.binning_total.item()) > capacity:
             fail(f"train step {i}: {int(out.binning_total)} instances overflow {capacity}")
@@ -528,6 +706,8 @@ def main() -> int:
     if not (loss_rel <= 1e-5 and param_err <= 1e-6 and mu_rel <= 1e-3):
         fail("the card's train step on the small scene disagrees with the CPU's")
 
+    probe_entries = probe_phase(dev, starts, stops, card)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "composite_fwd",
@@ -553,7 +733,7 @@ def main() -> int:
         "bound_ms": bound_b,
         "bound_by": bound_by_b,
         "library_ms": None,
-    }]}), flush=True)
+    }, *probe_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

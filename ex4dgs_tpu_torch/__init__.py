@@ -15,6 +15,8 @@ counterpart is found by path:
   rendering   the public render API
   train/      the training step
   synthetic   synthetic scenes and cameras
+  probes/     the layout probes of tools/tpu_probes/ (P1 `unaligned`, P2
+              `outspec`), their kernels' plain versions and entry points
 
 Entry points put their tensors on `cuda` unless the caller passes
 `device="cpu"`; without a GPU they raise instead of falling back.

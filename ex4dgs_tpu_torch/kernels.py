@@ -3,14 +3,15 @@
 Each kernel source is compiled with nvcc for sm_90a into a shared library
 with a plain C interface, at its first launch, into `_build/` beside this
 file (listed in .gitignore), and loaded with ctypes (`load_all` builds
-every source at once, one nvcc each). A library is named by the hash of its
-source, so an edited kernel is rebuilt. Importing this
-module needs neither nvcc nor a GPU: nothing is built or loaded until a
-kernel is launched on a CUDA tensor.
+every source at once, one nvcc each). A source exports one C function per
+entry point (`SOURCES`). A library is named by the hash of its source, so
+an edited kernel is rebuilt. Importing this module needs neither nvcc nor
+a GPU: nothing is built or loaded until a kernel is launched on a CUDA
+tensor.
 
-`launches` counts the launches of each kernel; a wrapper adds one where it
-launches its kernel and nowhere else, so a caller can show which kernels a
-run went through (reset it with `reset_launches`).
+`launches` counts the launches of each entry point; a wrapper adds one where
+it launches its kernel and nowhere else, so a caller can show which kernels
+a run went through (reset it with `reset_launches`).
 """
 from __future__ import annotations
 
@@ -30,8 +31,15 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-launches: dict[str, int] = {"composite_fwd": 0, "composite_bwd": 0}
-build_logs: dict[str, str] = {}  # kernel name -> nvcc's output (ptxas usage)
+# csrc/<source>.cu -> the C functions it exports, each launching one kernel.
+SOURCES = {
+    "composite_fwd": ("composite_fwd",),
+    "composite_bwd": ("composite_bwd",),
+    "probe_unaligned": ("probe_unaligned",),
+    "probe_outspec": ("outspec_a", "outspec_b", "outspec_c", "outspec_d", "outspec_e"),
+}
+launches: dict[str, int] = {fn: 0 for fns in SOURCES.values() for fn in fns}
+build_logs: dict[str, str] = {}  # source name -> nvcc's output (ptxas usage)
 _libs: dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
@@ -43,8 +51,19 @@ _SIGNATURES = {
     # data, starts, stops, gacc, acdot, gend, tfinal, dgrad, capacity, num_tiles,
     # grid_x, tile_x, tile_y, stream
     "composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P],
+    # src, offsets, out, n, num_windows, stream
+    "probe_unaligned": [_P, _P, _P, ctypes.c_longlong, _I, _P],
+    "outspec_a": [_P, _P, _P, _I, _P],  # accum, tfinal, bestidx, num_tiles, stream
+    "outspec_b": [_P, _I, _P],  # out, num_tiles, stream
+    "outspec_c": [_P, _I, _P],  # accum, num_tiles, stream
+    "outspec_d": [_P, _P, _P, _P, _P, _I, _P],  # gacc, a1, a2, a3, out, num_tiles, stream
+    "outspec_e": [_P, _P, _I, _P],  # gin, out, num_tiles, stream
 }
-_locks = {name: threading.Lock() for name in _SIGNATURES}
+_locks = {name: threading.Lock() for name in SOURCES}
+
+# The probes' fixed shapes (tools/tpu_probes/_tpu_unaligned.py, _tpu_outspec.py).
+PROBE_ROWS, PROBE_WINDOW = 16, 256
+OUTSPEC_PIX = 512
 
 
 def reset_launches() -> None:
@@ -61,7 +80,7 @@ def _nvcc() -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built from csrc/<name>.cu if no
+    """The loaded library of source `name`, built from csrc/<name>.cu if no
     library of this source exists yet."""
     with _locks[name]:
         if name in _libs:
@@ -79,9 +98,10 @@ def load(name: str) -> ctypes.CDLL:
                 raise RuntimeError(f"nvcc failed to build {src}:\n{build_logs[name]}")
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
-        fn = getattr(lib, name)
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
+        for entry in SOURCES[name]:
+            fn = getattr(lib, entry)
+            fn.argtypes = _SIGNATURES[entry]
+            fn.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
@@ -90,10 +110,23 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def load_all() -> None:
-    """load() every kernel, one thread (and so one nvcc) per source, all
+    """load() every source, one thread (and so one nvcc) per source, all
     started together; raises the first build failure."""
-    with ThreadPoolExecutor(len(_SIGNATURES)) as pool:
-        list(pool.map(load, _SIGNATURES))
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(load, SOURCES))
+
+
+def _launch(source: str, entry: str, dev: torch.device, *args) -> None:
+    """Call C function `entry` of csrc/<source>.cu with `args` and the
+    current stream of `dev`; raise if the launch failed, else count it."""
+    lib = load(source)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        msg = getattr(lib, f"{source}_error_string")(err).decode()
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({msg})")
+    launches[entry] += 1
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device):
@@ -133,17 +166,9 @@ def composite_fwd(data: torch.Tensor, gid: torch.Tensor, starts: torch.Tensor,
     bestidx = torch.empty((num_tiles, npix, 1), dtype=torch.int32, device=dev)
     if num_tiles == 0:
         return accum, tfinal, bestidx
-    lib = load("composite_fwd")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.composite_fwd(data.data_ptr(), gid.data_ptr(), starts.data_ptr(),
-                                stops.data_ptr(), accum.data_ptr(), tfinal.data_ptr(),
-                                bestidx.data_ptr(), capacity, num_tiles, grid_x, tile_x,
-                                tile_y, int(track_idx), stream)
-    if err != 0:
-        msg = lib.composite_fwd_error_string(err).decode()
-        raise RuntimeError(f"composite_fwd launch failed: CUDA error {err} ({msg})")
-    launches["composite_fwd"] += 1
+    _launch("composite_fwd", "composite_fwd", dev, data.data_ptr(), gid.data_ptr(),
+            starts.data_ptr(), stops.data_ptr(), accum.data_ptr(), tfinal.data_ptr(),
+            bestidx.data_ptr(), capacity, num_tiles, grid_x, tile_x, tile_y, int(track_idx))
     return accum, tfinal, bestidx
 
 
@@ -175,15 +200,104 @@ def composite_bwd(data: torch.Tensor, starts: torch.Tensor, stops: torch.Tensor,
     dgrad = torch.zeros((16, capacity), dtype=torch.float32, device=dev)
     if num_tiles == 0:
         return dgrad
-    lib = load("composite_bwd")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.composite_bwd(data.data_ptr(), starts.data_ptr(), stops.data_ptr(),
-                                gacc.data_ptr(), acdot.data_ptr(), gend.data_ptr(),
-                                tfinal.data_ptr(), dgrad.data_ptr(), capacity, num_tiles,
-                                grid_x, tile_x, tile_y, stream)
-    if err != 0:
-        msg = lib.composite_bwd_error_string(err).decode()
-        raise RuntimeError(f"composite_bwd launch failed: CUDA error {err} ({msg})")
-    launches["composite_bwd"] += 1
+    _launch("composite_bwd", "composite_bwd", dev, data.data_ptr(), starts.data_ptr(),
+            stops.data_ptr(), gacc.data_ptr(), acdot.data_ptr(), gend.data_ptr(),
+            tfinal.data_ptr(), dgrad.data_ptr(), capacity, num_tiles, grid_x, tile_x, tile_y)
     return dgrad
+
+
+def probe_unaligned(src: torch.Tensor, offsets: torch.Tensor, *,
+                    check_range: bool = True) -> torch.Tensor:
+    """Launch csrc/probe_unaligned.cu on CUDA tensors: src f32 [16, N],
+    offsets i32 [T], each in [0, N - 256]. Returns out f32 [T, 16, 256],
+    out[p] = src[:, offsets[p] : offsets[p] + 256], computed on the current
+    stream. Raises on anything the kernel does not take, and when the launch
+    fails. The range check reads the offsets to the host and so waits for
+    the device; a caller that times launches of offsets it has checked
+    already passes check_range=False."""
+    dev = src.device
+    n = src.shape[1] if src.dim() == 2 else -1
+    num = offsets.shape[0] if offsets.dim() == 1 else -1
+    _check("src", src, torch.float32, (PROBE_ROWS, n), dev)
+    _check("offsets", offsets, torch.int32, (num,), dev)
+    if n < PROBE_WINDOW:
+        raise ValueError(f"src has {n} columns, fewer than one {PROBE_WINDOW}-wide window")
+    if check_range and num and not (int(offsets.min()) >= 0
+                                    and int(offsets.max()) <= n - PROBE_WINDOW):
+        raise ValueError(f"an offset lies outside [0, {n - PROBE_WINDOW}]: the window "
+                         f"would read past src")
+    if dev.type != "cuda":
+        raise ValueError(f"probe_unaligned runs on CUDA tensors, got {dev}")
+    out = torch.empty((num, PROBE_ROWS, PROBE_WINDOW), dtype=torch.float32, device=dev)
+    if num == 0:
+        return out
+    _launch("probe_unaligned", "probe_unaligned", dev, src.data_ptr(), offsets.data_ptr(),
+            out.data_ptr(), n, num)
+    return out
+
+
+def _outspec_device(num_tiles: int, device) -> torch.device:
+    dev = torch.device(device)
+    if num_tiles <= 0:
+        raise ValueError(f"num_tiles must be positive, got {num_tiles}")
+    if dev.type != "cuda":
+        raise ValueError(f"the outspec probes run on a CUDA device, got {dev}")
+    return dev
+
+
+def outspec_a(num_tiles: int, device="cuda"):
+    """Launch probe_outspec.cu's kernel a: kernel A's output layout filled
+    with constants. Returns (accum f32 [T, 512, 8] of 1.0, tfinal f32
+    [T, 512, 1] of 2.0, bestidx i32 [T, 512, 1] of 3)."""
+    dev = _outspec_device(num_tiles, device)
+    accum = torch.empty((num_tiles, OUTSPEC_PIX, 8), dtype=torch.float32, device=dev)
+    tfinal = torch.empty((num_tiles, OUTSPEC_PIX, 1), dtype=torch.float32, device=dev)
+    bestidx = torch.empty((num_tiles, OUTSPEC_PIX, 1), dtype=torch.int32, device=dev)
+    _launch("probe_outspec", "outspec_a", dev, accum.data_ptr(), tfinal.data_ptr(),
+            bestidx.data_ptr(), num_tiles)
+    return accum, tfinal, bestidx
+
+
+def outspec_b(num_tiles: int, device="cuda") -> torch.Tensor:
+    """Kernel b: the wide, channel-major layout f32 [T, 16, 512] filled with 1.0."""
+    dev = _outspec_device(num_tiles, device)
+    out = torch.empty((num_tiles, 16, OUTSPEC_PIX), dtype=torch.float32, device=dev)
+    _launch("probe_outspec", "outspec_b", dev, out.data_ptr(), num_tiles)
+    return out
+
+
+def outspec_c(num_tiles: int, device="cuda") -> torch.Tensor:
+    """Kernel c: accum alone, f32 [T, 512, 8] filled with 1.0."""
+    dev = _outspec_device(num_tiles, device)
+    out = torch.empty((num_tiles, OUTSPEC_PIX, 8), dtype=torch.float32, device=dev)
+    _launch("probe_outspec", "outspec_c", dev, out.data_ptr(), num_tiles)
+    return out
+
+
+def outspec_d(gacc: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor,
+              a3: torch.Tensor) -> torch.Tensor:
+    """Kernel d: kernel B's input layout, gacc f32 [T, 512, 8] and a1, a2, a3
+    f32 [T, 512, 1], read in; returns f32 [T, 16, 512] holding, everywhere
+    in tile t, the sum of tile t's inputs."""
+    dev = gacc.device
+    num_tiles = gacc.shape[0] if gacc.dim() == 3 else -1
+    _check("gacc", gacc, torch.float32, (num_tiles, OUTSPEC_PIX, 8), dev)
+    for name, t in (("a1", a1), ("a2", a2), ("a3", a3)):
+        _check(name, t, torch.float32, (num_tiles, OUTSPEC_PIX, 1), dev)
+    dev = _outspec_device(num_tiles, dev)
+    out = torch.empty((num_tiles, 16, OUTSPEC_PIX), dtype=torch.float32, device=dev)
+    _launch("probe_outspec", "outspec_d", dev, gacc.data_ptr(), a1.data_ptr(), a2.data_ptr(),
+            a3.data_ptr(), out.data_ptr(), num_tiles)
+    return out
+
+
+def outspec_e(gin: torch.Tensor) -> torch.Tensor:
+    """Kernel e: gin f32 [T, 16, 512] read in; returns f32 [T, 16, 512]
+    holding, everywhere in tile t, the sum of gin[t]."""
+    dev = gin.device
+    num_tiles = gin.shape[0] if gin.dim() == 3 else -1
+    _check("gin", gin, torch.float32, (num_tiles, 16, OUTSPEC_PIX), dev)
+    dev = _outspec_device(num_tiles, dev)
+    out = torch.empty((num_tiles, 16, OUTSPEC_PIX), dtype=torch.float32, device=dev)
+    _launch("probe_outspec", "outspec_e", dev, gin.data_ptr(), out.data_ptr(), num_tiles)
+    return out

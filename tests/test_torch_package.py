@@ -25,6 +25,7 @@ from ex4dgs_tpu_torch.models import optimizer, state
 from ex4dgs_tpu_torch.models.config import ModelConfig, OptimizationConfig
 from ex4dgs_tpu_torch.models.temporal import point_data_at_t
 from ex4dgs_tpu_torch.ops import rasterize_cuda
+from ex4dgs_tpu_torch.probes import outspec, unaligned
 from ex4dgs_tpu_torch.train import step
 
 torch.set_num_threads(2)
@@ -60,7 +61,8 @@ def test_port_loads_without_jax_in_a_fresh_interpreter():
         "import ex4dgs_tpu_torch, ex4dgs_tpu_torch.kernels, ex4dgs_tpu_torch.rendering\n"
         "import ex4dgs_tpu_torch.synthetic, ex4dgs_tpu_torch.ops.rasterize_tiled\n"
         "import ex4dgs_tpu_torch.train.step, ex4dgs_tpu_torch.ops.losses\n"
-        "import ex4dgs_tpu_torch.models.optimizer\n"
+        "import ex4dgs_tpu_torch.models.optimizer, ex4dgs_tpu_torch.probes.unaligned\n"
+        "import ex4dgs_tpu_torch.probes.outspec\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not loaded, loaded\n"
@@ -119,11 +121,18 @@ def _call(entry, device, model, cfg, cam):
         return step.train_step(model, optimizer.init_state(model.params, device="cpu"), cam,
                                torch.zeros((cam.height, cam.width, 3)), 1.0, (0, 0, 0), 1,
                                statics, **kw)
+    if entry == "probe_unaligned_main":
+        return unaligned.main(**kw, n=4096, t=8, reps=1)
+    if entry == "probe_outspec_main":
+        return outspec.main(**kw, t=3, reps=1)
+    if entry == "probe_make_src":
+        return unaligned.make_src(4096, **kw)
     raise AssertionError(entry)
 
 
 ENTRIES = ("make_scene", "ring_cameras", "lookat_camera", "empty_model", "model_from_numpy",
-           "camera_from_numpy", "render", "render_points", "init_state", "train_step")
+           "camera_from_numpy", "render", "render_points", "init_state", "train_step",
+           "probe_unaligned_main", "probe_outspec_main", "probe_make_src")
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -138,6 +147,8 @@ def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry):
         assert float(out.acc.max()) > 0.0
     if entry == "train_step":
         assert out.model.device.type == "cpu" and bool(torch.isfinite(out.loss))
+    if entry == "probe_make_src":
+        assert out.device.type == "cpu" and out.shape == (16, 4096)
 
 
 def test_render_refuses_tensors_on_another_device():
@@ -240,5 +251,11 @@ def test_kernel_config_validation():
 def test_launch_counter_reset():
     kernels.launches["composite_fwd"] += 3
     kernels.launches["composite_bwd"] += 2
+    kernels.launches["outspec_d"] += 1
     kernels.reset_launches()
-    assert kernels.launches == {"composite_fwd": 0, "composite_bwd": 0}
+    assert kernels.launches == {name: 0 for name in (
+        "composite_fwd", "composite_bwd", "probe_unaligned", "outspec_a", "outspec_b",
+        "outspec_c", "outspec_d", "outspec_e")}
+    # one counter per C function, each exported by one source
+    entries = [fn for fns in kernels.SOURCES.values() for fn in fns]
+    assert sorted(entries) == sorted(kernels.launches) == sorted(kernels._SIGNATURES)
