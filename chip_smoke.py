@@ -8,16 +8,23 @@ Phases (any failure ends the script with a non-zero exit and no result line):
 1. build: compile every CUDA kernel from ex4dgs_tpu_torch/csrc/ with nvcc
    (sm_90a), one nvcc per source, all started together; print the build time
    and ptxas' register/shared-memory report.
-2. scene: the bench scene of bench.py at full width (100k static + 10k
-   dynamic splats, 1352x1014, scaling clamped to log(0.02)); the instance
-   buffer is sized as bench.py sizes it (probe at 2M, then
-   round_capacity(total * 5 // 4, 65536)).
-3. forward kernel vs plain: one frame's packed instances go through the
-   forward-compositing kernel and through its plain PyTorch version on the
-   card; accum and tfinal must agree within 2e-5, the normalised depth
-   within 1e-4 and the dominant ids on >= 99.9% of pixels. Both are timed
-   with CUDA events, and the least time the card could take for the same
-   work is computed from this frame's data.
+2. scene: ex4dgs_tpu_torch.bench_frame.bench_scene, the bench scene of
+   bench.py at full width (100k static + 10k dynamic splats, 1352x1014,
+   scaling clamped to log(0.02)); the instance buffer is sized as bench.py
+   sizes it (probe at 2M, then round_capacity(total * 5 // 4, 65536)).
+3. forward kernel vs plain: one frame's packed instances (bench_frame.
+   pack_frame at t = 1, 32x16 tiles) go through the forward-compositing
+   kernel and through its plain PyTorch version on the card; accum and
+   tfinal must agree within 2e-5, tfinal also within TF_RTOL of itself off
+   the latch (ops/rasterize_cuda.py::tfinal_rel_err; a dropped contributing
+   pair moves it by 3.9e-3), the
+   normalised depth within 1e-4 and the dominant ids on >= 99.9% of pixels;
+   two launches must be bit-equal. Both are timed with CUDA events. The
+   frame's pairs are counted (evaluated, contributing, applied, and walked
+   by warps with and without the twin of the kernel's per-warp cull, which
+   must drop no contributing pair), and the least time the card could take
+   for the work these inputs need is computed from the contributing and
+   applied pairs (the old bound, from every evaluated pair, beside it).
 4. render path: rendering.render at t = 0, 1, 2.5, 4, 7.5 with track_idx
    True and False, then the FPS recipe of eval/render_sets.py (per-call host
    timing ending in torch.cuda.synchronize, warm-up calls dropped). The
@@ -91,6 +98,10 @@ SFU_OPS_S = 132 * 16 * 1.98e9
 # transmittance, the latch test, the weight, 8 feature FMAs and the
 # best-weight test: 13. Loop, index and shared-memory instructions are not
 # counted, so the bound stays a lower bound.
+# Only contributing pairs (power <= 0 and alpha >= 1/255 before the pixel's
+# latch) are charged the 15 slots and the exp: a kernel that culls per warp
+# against the splat's extent never evaluates the others, so charging every
+# evaluated pair (the bound printed as "old") no longer bounds it.
 SLOTS_EVAL, SLOTS_APPLIED = 15, 13
 # csrc/composite_bwd.cu: an evaluated pair costs the forward's 15; an applied
 # pair the transmittance update and weight (4), the colour prefix and dot
@@ -98,7 +109,8 @@ SLOTS_EVAL, SLOTS_APPLIED = 15, 13
 # and power terms (2), the five geometry rows (14) and the eight feature
 # rows (8): 43, plus one add per gradient row into its instance's sum (14),
 # the least any reduction over the pixels needs. Its SFU work: the exp of
-# every evaluated pair and the reciprocal of every applied one.
+# every contributing pair and the reciprocal of every applied one (as for
+# kernel A, the pairs that do not contribute are not charged).
 SLOTS_EVAL_B, SLOTS_APPLIED_B = 15, 57
 BWD_ROWS = {"xy": slice(0, 2), "conic": slice(2, 5), "opacity": slice(5, 6),
             "features": slice(6, 14)}
@@ -120,7 +132,6 @@ SUM_RTOL = 1e-6  # P2 d and e: of each tile's sum of |x|
 BOUND_SLACK = 1.05  # no probe launch may read above 105% of the memory rate
 
 TIMESTAMPS = (0.0, 1.0, 2.5, 4.0, 7.5)
-W, H = 1352, 1014
 
 
 def log(msg: str) -> None:
@@ -139,21 +150,6 @@ def card_line() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean ms per call of fn() on the current stream, from CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def profile_frames(frame, n: int = 3, top: int = 12):
@@ -201,12 +197,22 @@ def report_profile(what: str, fn, card: str) -> None:
         log(f"#   {ms_k:8.4f} ms  x{count:5.1f}  {name[:100]}")
 
 
-def walked_pairs(data, starts, stops, grid_x, tile_x, tile_y, chunk=64, tile_batch=1024):
-    """(evaluated, applied) instance x pixel pairs of one frame: a pair is
-    evaluated when its pixel has not latched before it (transmittance still
-    >= T_EPS), applied when it also contributes. This is the work the blend
-    needs, with per-pixel early exit; the kernel may walk more."""
+def walked_pairs(data, starts, stops, grid_x, tile_x, tile_y, chunk=64, tile_batch=256,
+                 kernel_batch=256):
+    """Instance x pixel pair counts of one frame, with per-pixel early exit:
+    a pair is evaluated when its pixel has not latched before it
+    (transmittance still >= T_EPS), contributing when it also passes the
+    power and alpha tests, applied when the pixel does not latch on it.
+    Warp-level counts are lane-pairs (32 per warp step): a warp steps on an
+    instance while any of its 32 pixels is live, and with the per-warp cull
+    only on the instances that warp_cull_plain (the twin of the kernel's
+    cull) keeps. `slowest_warp` charges each kernel batch (256 instances
+    from the tile's start, between two barriers) the culled walk of the
+    block's slowest warp for every warp: the lane-pairs the block holds while
+    its warps wait at the batch's barrier. `dropped` counts contributing
+    pairs that the twin skips: it must be 0."""
     from ex4dgs_tpu_torch.ops import compositing as comp
+    from ex4dgs_tpu_torch.ops.rasterize_cuda import warp_boxes, warp_cull_plain
     from ex4dgs_tpu_torch.ops.rasterize_tiled import tile_pixels
 
     dev = data.device
@@ -214,14 +220,18 @@ def walked_pairs(data, starts, stops, grid_x, tile_x, tile_y, chunk=64, tile_bat
     xy, conic, opac = rows[:, 0:2], rows[:, 2:5], rows[:, 5]
     capacity = rows.shape[0]
     T = starts.shape[0]
+    nw = tile_x * tile_y // 32
     pixf = tile_pixels(grid_x, T // grid_x, tile_x, tile_y, dev)
+    boxes = warp_boxes(grid_x, T, tile_x, tile_y, dev)
     lanes = torch.arange(chunk, device=dev)[None, :]
-    evaluated = applied = 0
+    n = dict.fromkeys(("evaluated", "contributing", "applied", "warp_walked",
+                       "warp_walked_culled", "slowest_warp", "dropped"), 0)
     for b in range(0, T, tile_batch):
         s = slice(b, b + tile_batch)
         st, sp = starts[s].long(), stops[s].long()
         cum_in = torch.ones(pixf[s].shape[:2], device=dev)
         longest = int((sp - st).max().item())
+        per_warp = torch.zeros((st.shape[0], nw), dtype=torch.long, device=dev)
         for j in range(-(-longest // chunk)):
             idx = st[:, None] + j * chunk + lanes
             ok = idx < sp[:, None]
@@ -230,10 +240,25 @@ def walked_pairs(data, starts, stops, grid_x, tile_x, tile_y, chunk=64, tile_bat
                                         opac[ic][:, None], ok[:, None])
             cum = cum_in[..., None] * torch.cumprod(1.0 - alpha, dim=-1)
             cum_excl = torch.cat([cum_in[..., None], cum[..., :-1]], dim=-1)
-            evaluated += int((ok[:, None] & (cum_excl >= comp.T_EPS)).sum().item())
-            applied += int((m & (cum >= comp.T_EPS)).sum().item())
+            live = ok[:, None] & (cum_excl >= comp.T_EPS)  # [B, P, C]
+            contributing = m & (cum_excl >= comp.T_EPS)
+            n["evaluated"] += int(live.sum().item())
+            n["contributing"] += int(contributing.sum().item())
+            n["applied"] += int((m & (cum >= comp.T_EPS)).sum().item())
+            B = live.shape[0]
+            warp_live = live.reshape(B, nw, 32, -1).any(2)  # [B, W, C]
+            skip = warp_cull_plain(xy[ic][:, None], conic[ic][:, None], opac[ic][:, None],
+                                   boxes[s][:, :, None, :])
+            n["warp_walked"] += 32 * int(warp_live.sum().item())
+            walked = warp_live & ~skip
+            n["warp_walked_culled"] += 32 * int(walked.sum().item())
+            per_warp += walked.sum(-1)
+            if (j + 1) % (kernel_batch // chunk) == 0 or j + 1 == -(-longest // chunk):
+                n["slowest_warp"] += 32 * nw * int(per_warp.amax(1).sum().item())
+                per_warp.zero_()
+            n["dropped"] += int((contributing.reshape(B, nw, 32, -1).any(2) & skip).sum().item())
             cum_in = cum[..., -1]
-    return evaluated, applied
+    return n
 
 
 def bound_of(nbytes: float, slots: float, sfu_ops: float):
@@ -269,6 +294,7 @@ def probe_phase(dev, starts, stops, card: str) -> list[dict]:
     """Phase 10: the probes' main path, then each probe kernel against its
     plain version and its bound. Returns the kernels-line entries."""
     from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch.bench_frame import cuda_ms
     from ex4dgs_tpu_torch.probes import outspec, readings_ms, unaligned
 
     # The card idled through phase 9's CPU half: 200 fills of 1 GiB (200 GiB
@@ -407,15 +433,13 @@ def main() -> int:
         fail("no CUDA device: this script measures the port on a GPU")
     import ex4dgs_tpu_torch  # noqa: F401  (sets the precision policy)
     from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch.bench_frame import (PROBE_CAPACITY, H, W, bench_scene, cuda_ms,
+                                              pack_frame)
     from ex4dgs_tpu_torch.models.config import OptimizationConfig
     from ex4dgs_tpu_torch.models.optimizer import init_state
-    from ex4dgs_tpu_torch.models.state import round_capacity
-    from ex4dgs_tpu_torch.models.temporal import point_data_at_t
-    from ex4dgs_tpu_torch.ops.binning import bin_gaussians
-    from ex4dgs_tpu_torch.ops.projection import tile_grid
-    from ex4dgs_tpu_torch.ops.rasterize_cuda import (composite_tiles_bwd_plain,
-                                                     composite_tiles_plain, pack_sorted)
-    from ex4dgs_tpu_torch.rendering import preprocess_points, render
+    from ex4dgs_tpu_torch.ops.rasterize_cuda import (TF_RTOL, composite_tiles_bwd_plain,
+                                                     composite_tiles_plain, tfinal_rel_err)
+    from ex4dgs_tpu_torch.rendering import render
     from ex4dgs_tpu_torch.synthetic import make_scene, ring_cameras
     from ex4dgs_tpu_torch.train.step import StepStatics, train_step
 
@@ -435,16 +459,11 @@ def main() -> int:
 
     # -- 2. scene --------------------------------------------------------
     t0 = time.perf_counter()
-    model, cfg = make_scene(n_static=100_000, n_dynamic=10_000, duration=10.0,
-                            static_capacity=100_000, dynamic_capacity=16_384, device=dev)
-    model.params["scaling"] = torch.clamp_max(model.params["scaling"], math.log(0.02))
-    cam = ring_cameras(1, 3.0, W, H, far=cfg.far, device=dev)[0]
+    scene = bench_scene(dev)
+    model, cfg, cam, total, capacity = scene
+    if total > PROBE_CAPACITY:
+        fail(f"bench scene overflows the {PROBE_CAPACITY} probe capacity ({total})")
     bg = torch.zeros(3, device=dev)
-    probe = render(cam, model, cfg, t=1.0, bg=bg, capacity=2 * 1024 * 1024, device=dev)
-    total = int(probe.binning_total.item())
-    if total > 2 * 1024 * 1024:
-        fail(f"bench scene overflows the 2M probe capacity ({total})")
-    capacity = min(2 * 1024 * 1024, round_capacity(total * 5 // 4, 65536))
     torch.cuda.synchronize()
     log(f"# scene: {model.static_capacity} + {model.dynamic_capacity} splats, {W}x{H}, "
         f"{total} instances at t=1 (capacity {capacity}), built in "
@@ -452,20 +471,18 @@ def main() -> int:
 
     # -- 3. forward kernel vs plain ------------------------------------
     tx, ty = 32, 16
-    gx, gy = tile_grid(W, H, tx, ty)
-    pts = point_data_at_t(model, cfg, 1.0)
-    proj, colors = preprocess_points(pts, cam, cfg, near=cfg.near, far=cfg.far)
-    flow = torch.zeros((proj.xy.shape[0], 3), device=dev)
-    binning = bin_gaussians(proj, gx, gy, capacity)
-    data, gid = pack_sorted(proj, colors, flow, binning)
-    starts, stops = binning.tile_start, binning.tile_stop
+    data, gid, starts, stops, gx, n_points = pack_frame(scene, tx, ty)
     args = (data, gid, starts, stops)
     kw = dict(grid_x=gx, tile_x=tx, tile_y=ty, track_idx=True)
     acc_k, tf_k, idx_k = kernels.composite_fwd(*args, **kw)
+    again = kernels.composite_fwd(*args, **kw)
     acc_p, tf_p, idx_p = composite_tiles_plain(*args, **kw)
     torch.cuda.synchronize()
     err_acc = (acc_k - acc_p).abs().max().item()
     err_tf = (tf_k - tf_p).abs().max().item()
+    rel_tf, n_latch = tfinal_rel_err(tf_k, tf_p)
+    same_fwd = all(torch.equal(a, b) for a, b in zip((acc_k, tf_k, idx_k), again))
+    del again
 
     def depth_of(a):
         has = a[..., 7] > 0
@@ -475,12 +492,14 @@ def main() -> int:
     agree = (idx_k == idx_p).float().mean().item()
     finite = all(bool(torch.isfinite(x).all()) for x in (acc_k, tf_k))
     log(f"# composite_fwd vs plain: accum {err_acc:.3g} (atol 2e-5), tfinal {err_tf:.3g} "
-        f"(atol 2e-5), depth {err_depth:.3g} (atol 1e-4), bestidx agreement {agree:.6f} "
-        f"(>= 0.999), finite {finite}")
+        f"(atol 2e-5; relative {rel_tf:.3g}, rtol {TF_RTOL:g}, {n_latch} pixels on the latch "
+        f"left out), depth {err_depth:.3g} (atol "
+        f"1e-4), bestidx agreement {agree:.6f} (>= 0.999), finite {finite}; two launches "
+        f"bit-equal {same_fwd}")
     if not (finite and err_acc <= 2e-5 and err_tf <= 2e-5 and err_depth <= 1e-4
-            and agree >= 0.999):
+            and agree >= 0.999 and rel_tf <= TF_RTOL and same_fwd):
         fail("composite_fwd disagrees with its plain version")
-    if not bool((idx_k >= -1).all()) or int(idx_k.max().item()) >= proj.xy.shape[0]:
+    if not bool((idx_k >= -1).all()) or int(idx_k.max().item()) >= n_points:
         fail("composite_fwd wrote an id outside [-1, P)")
     del acc_p, tf_p, idx_p
 
@@ -488,16 +507,28 @@ def main() -> int:
     ms_noidx = cuda_ms(lambda: kernels.composite_fwd(*args, **{**kw, "track_idx": False}),
                        reps=20)
     plain_ms = cuda_ms(lambda: composite_tiles_plain(*args, **kw), reps=2, warmup=1)
-    evaluated, applied = walked_pairs(data, starts, stops, gx, tx, ty)
+    pairs = walked_pairs(data, starts, stops, gx, tx, ty)
+    evaluated, contributing, applied = (pairs[k] for k in ("evaluated", "contributing",
+                                                           "applied"))
     n_inst = int(stops[-1].item() - starts[0].item())
     T, npix = starts.shape[0], tx * ty
     nbytes = 14 * 4 * n_inst + 4 * n_inst + 2 * 4 * T + T * npix * (8 + 1 + 1) * 4
     bound_ms, bound_by, (t_bytes, t_fp32, t_sfu) = bound_of(
-        nbytes, SLOTS_EVAL * evaluated + SLOTS_APPLIED * applied, evaluated)
+        nbytes, SLOTS_EVAL * contributing + SLOTS_APPLIED * applied, contributing)
+    old_bound, _, _ = bound_of(nbytes, SLOTS_EVAL * evaluated + SLOTS_APPLIED * applied,
+                               evaluated)
     log(f"# composite_fwd: {ms:.4f} ms/frame (track_idx=False {ms_noidx:.4f}), plain "
-        f"{plain_ms:.2f} ms; {n_inst} instances in {T} tiles; pairs evaluated {evaluated}, "
-        f"applied {applied}; bound {bound_ms:.4f} ms (bytes {t_bytes:.4f}, fp32 "
-        f"{t_fp32:.4f}, sfu exp {t_sfu:.4f}); {card}")
+        f"{plain_ms:.2f} ms; {n_inst} instances in {T} tiles; lane-pairs evaluated "
+        f"{evaluated}, contributing {contributing}, applied {applied}, walked by warps "
+        f"{pairs['warp_walked']} without the cull and {pairs['warp_walked_culled']} with "
+        f"the cull's twin ({pairs['dropped']} contributing pairs dropped), "
+        f"{pairs['slowest_warp']} with each batch at its slowest warp's pace; bound "
+        f"{bound_ms:.4f} ms from contributing pairs (bytes {t_bytes:.4f}, fp32 {t_fp32:.4f}, "
+        f"sfu exp {t_sfu:.4f}), old bound from evaluated pairs {old_bound:.4f} ms; {card}")
+    if pairs["dropped"]:
+        fail(f"the cull's twin skips {pairs['dropped']} contributing pairs")
+    if ms < bound_ms:
+        fail(f"composite_fwd read {ms:.4f} ms, below its bound {bound_ms:.4f} ms")
 
     # -- 4. render path ----------------------------------------------------
     def frame(t, track_idx):
@@ -561,7 +592,7 @@ def main() -> int:
     gacc = torch.randn(acc_k.shape, device=dev, generator=gen)
     gend = torch.randn(tf_k.shape, device=dev, generator=gen)
     acdot = (acc_k[..., 0:3] * gacc[..., 0:3]).sum(-1, keepdim=True)
-    bargs = (data.detach(), starts, stops, gacc, acdot, gend, tf_k)
+    bargs = (data, starts, stops, gacc, acdot, gend, tf_k)
     bkw = dict(grid_x=gx, tile_x=tx, tile_y=ty)
     d_k = kernels.composite_bwd(*bargs, **bkw)
     d_k2 = kernels.composite_bwd(*bargs, **bkw)
@@ -595,10 +626,16 @@ def main() -> int:
     plain_ms_b = cuda_ms(lambda: composite_tiles_bwd_plain(*bargs, **bkw), reps=2, warmup=1)
     nbytes_b = (14 + 16) * 4 * n_inst + 2 * 4 * T + T * npix * (8 + 3) * 4
     bound_b, bound_by_b, (tb_bytes, tb_fp32, tb_sfu) = bound_of(
-        nbytes_b, SLOTS_EVAL_B * evaluated + SLOTS_APPLIED_B * applied, evaluated + applied)
-    log(f"# composite_bwd: {ms_b:.4f} ms/frame, plain {plain_ms_b:.2f} ms; pairs evaluated "
-        f"{evaluated}, applied {applied}; bound {bound_b:.4f} ms (bytes {tb_bytes:.4f}, "
-        f"fp32 {tb_fp32:.4f}, sfu {tb_sfu:.4f}); {card}")
+        nbytes_b, SLOTS_EVAL_B * contributing + SLOTS_APPLIED_B * applied,
+        contributing + applied)
+    old_bound_b, _, _ = bound_of(nbytes_b, SLOTS_EVAL_B * evaluated + SLOTS_APPLIED_B * applied,
+                                 evaluated + applied)
+    log(f"# composite_bwd: {ms_b:.4f} ms/frame, plain {plain_ms_b:.2f} ms; lane-pairs "
+        f"evaluated {evaluated}, contributing {contributing}, applied {applied}; bound "
+        f"{bound_b:.4f} ms from contributing pairs (bytes {tb_bytes:.4f}, fp32 {tb_fp32:.4f}, "
+        f"sfu {tb_sfu:.4f}), old bound from evaluated pairs {old_bound_b:.4f} ms; {card}")
+    if ms_b < bound_b:
+        fail(f"composite_bwd read {ms_b:.4f} ms, below its bound {bound_b:.4f} ms")
     del bargs, gacc, gend, acdot, d_k, acc_k, tf_k, idx_k, data, gid
 
     # -- 6. training path ------------------------------------------------

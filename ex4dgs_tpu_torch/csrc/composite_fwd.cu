@@ -18,38 +18,57 @@
 //                     ids are not tracked.
 //
 // Design: one thread block per tile, one thread per pixel. The block stages
-// batches of the tile's instances in shared memory (rows are feature-major, so
-// each row of a batch is one coalesced load), then every pixel runs the
+// batches of 256 instances in shared memory, then every pixel runs the
 // sequential blend over the batch. A pixel latches once T would drop below
 // 1e-4; the block leaves its range as soon as __syncthreads_count shows every
 // pixel latched.
 //
-// What bounds it on the H100: instance x pixel evaluations. Each pair costs one
-// exp (SFU) and 15 fp32 instructions, and an applied pair 13 more (8 of them
-// the feature FMAs); at one fp32 instruction per lane per clock that outweighs
-// the SFU's exp. The bytes moved (each instance row read once per tile, 40
-// bytes per pixel written) are far below the memory roofline.
+// What bounds it on the H100: the fp32 instructions of the instance x pixel
+// pairs, 15 for each pair that contributes and 13 more for each that is
+// applied, plus an exp on the SFU; the bytes (each instance row read once
+// per tile, 40 bytes per pixel written) are far below the memory roofline.
+// What the design does about the work that is not in that count:
+//  * Per-warp culling. Most of a tile's splats reach none of a warp's 32
+//    pixels. After a batch is staged, each warp tests its lanes' instances
+//    (lane l takes instances l, l + 32, ...) against the bounding box of its
+//    pixels (composite_common.cuh::warp_skips, conservative in fp32), and
+//    its pixels walk only the survivors of each group of 32, in ascending
+//    order (a ballot mask, __ffs), which is still depth order. A skipped
+//    pair is one the exact test below would have skipped, so the outputs
+//    are those of the kernel without the cull, bit for bit.
+//  * Vectorised staging. The batch sits in shared memory as four float4
+//    groups per instance (x y a b | c op r g | b depth fx fy | fz one - -):
+//    an evaluated pair reads two broadcast 16-byte loads, an applied pair
+//    two more, where scalar rows took 6 and 8. A thread loads four rows of
+//    one instance (each row a coalesced 4-byte read of the feature-major
+//    buffer from the tile's arbitrary start) and writes one float4;
+//    neighbouring threads write neighbouring float4s.
+//  * The dense accum store of composite_common.cuh, through the staging
+//    buffer (which is sized to at least P * 32 bytes for it).
 //
 // The power and alpha are computed with explicitly rounded operations in the
 // same order as the plain PyTorch version (ops/rasterize_cuda.py), and with the
 // same accurate expf, so the alpha-floor decisions agree bit for bit with it.
 // Do not build with --use_fast_math: it would change exp and flush denormals.
 //
-// What this simple design leaves on the table: pixels of a tile that latched
-// early idle until the whole tile exits; the staging loads are not overlapped
-// with the blend (no cp.async/TMA double buffering); every instance is
-// evaluated at all pixels of its tile, with no per-warp culling against the
-// splat's extent; and the pixel dimension never reaches the tensor cores.
+// What it leaves on the table: pixels that latched early idle until their
+// warp (and the tile) is done; the staging loads are not overlapped with the
+// blend; tiles run in launch order, so a long range may start in the last
+// wave; and the pixel dimension never reaches the tensor cores.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
+using ex4dgs::kAlphaMax;
+using ex4dgs::kAlphaMin;
+using ex4dgs::kTEps;
+
 constexpr int kBatch = 256;  // instances staged per shared-memory batch
-constexpr int kRows = 14;    // data rows read: xy, conic, opacity, 8 features
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
+constexpr int kGroups = 4;   // float4 groups per staged instance: rows 0-13
+constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void __launch_bounds__(1024)
 composite_fwd_kernel(const float* __restrict__ data, const int32_t* __restrict__ gid,
@@ -57,16 +76,22 @@ composite_fwd_kernel(const float* __restrict__ data, const int32_t* __restrict__
                      float* __restrict__ accum, float* __restrict__ tfinal,
                      int32_t* __restrict__ bestidx, long long capacity, int grid_x,
                      int tile_x, int tile_y, int track_idx) {
-  __shared__ float s_rows[kRows][kBatch];
+  // s4[g * kBatch + c]: rows 4g .. 4g + 3 of instance c of the batch; at the
+  // end, the dense store's staging buffer.
+  extern __shared__ float4 s4[];
   __shared__ int32_t s_gid[kBatch];
 
   const int tile = blockIdx.x;
   const int npix = blockDim.x;
   const int p = threadIdx.x;
+  const int lane = p & 31;
+  const int tx0 = (tile % grid_x) * tile_x;
+  const int ty0 = (tile / grid_x) * tile_y;
   // Pixel centres are exact integers in float; mean - pixel is then one
   // rounding, the same subtraction the plain version performs.
-  const float px = static_cast<float>((tile % grid_x) * tile_x + p % tile_x);
-  const float py = static_cast<float>((tile / grid_x) * tile_y + p / tile_x);
+  const float px = static_cast<float>(tx0 + p % tile_x);
+  const float py = static_cast<float>(ty0 + p / tile_x);
+  const ex4dgs::WarpBox box = ex4dgs::warp_box(p - lane, tile_x, tx0, ty0);
   const int start = starts[tile];
   const int stop = stops[tile];
 
@@ -79,27 +104,48 @@ composite_fwd_kernel(const float* __restrict__ data, const int32_t* __restrict__
   for (int base = start; base < stop; base += kBatch) {
     const int n = min(kBatch, stop - base);
     __syncthreads();  // the previous batch is consumed by every pixel
-    for (int k = p; k < kRows * kBatch; k += npix) {
-      const int r = k / kBatch;
-      const int c = k - r * kBatch;
-      if (c < n) s_rows[r][c] = data[r * capacity + base + c];
+    for (int k = p; k < kGroups * kBatch; k += npix) {
+      const int g = k / kBatch;
+      const int c = k - g * kBatch;
+      if (c < n) {
+        const float* col = data + 4 * g * capacity + base + c;
+        float4 v;
+        v.x = col[0];
+        v.y = col[capacity];
+        v.z = g < 3 ? col[2 * capacity] : 0.f;
+        v.w = g < 3 ? col[3 * capacity] : 0.f;
+        s4[k] = v;
+      }
     }
     for (int c = p; c < n; c += npix) s_gid[c] = gid[base + c];
     __syncthreads();
 
-    if (!done) {
-      for (int i = 0; i < n; ++i) {
-        const float dx = __fsub_rn(s_rows[0][i], px);
-        const float dy = __fsub_rn(s_rows[1][i], py);
-        const float q = __fadd_rn(__fmul_rn(__fmul_rn(s_rows[2][i], dx), dx),
-                                  __fmul_rn(__fmul_rn(s_rows[4][i], dy), dy));
-        const float power =
-            __fsub_rn(__fmul_rn(-0.5f, q), __fmul_rn(__fmul_rn(s_rows[3][i], dx), dy));
+    for (int c0 = 0; c0 < n; c0 += 32) {
+      if (!__any_sync(kFull, !done)) break;  // every pixel of the warp latched
+      const int cl = c0 + lane;
+      bool keep = false;
+      if (cl < n) {
+        const float4 g0 = s4[cl];
+        const float4 g1 = s4[kBatch + cl];
+        keep = !ex4dgs::warp_skips(g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, box);
+      }
+      unsigned live = __ballot_sync(kFull, keep);
+      if (done) continue;
+      while (live) {
+        const int i = c0 + __ffs(live) - 1;
+        live &= live - 1;
+        const float4 g0 = s4[i];           // x, y, a, b
+        const float4 g1 = s4[kBatch + i];  // c, opacity, r, g
+        const float dx = __fsub_rn(g0.x, px);
+        const float dy = __fsub_rn(g0.y, py);
+        const float q = __fadd_rn(__fmul_rn(__fmul_rn(g0.z, dx), dx),
+                                  __fmul_rn(__fmul_rn(g1.x, dy), dy));
+        const float power = __fsub_rn(__fmul_rn(-0.5f, q), __fmul_rn(__fmul_rn(g0.w, dx), dy));
         // Negated tests, and a min that keeps NaN, so a NaN power or opacity
         // is skipped as the plain version's masks skip it (fminf would turn
         // a NaN alpha into 0.99).
         if (!(power <= 0.f)) continue;
-        const float raw = __fmul_rn(s_rows[5][i], expf(power));
+        const float raw = __fmul_rn(g1.y, expf(power));
         const float alpha = raw > kAlphaMax ? kAlphaMax : raw;
         if (!(alpha >= kAlphaMin)) continue;
         const float t_next = T * (1.f - alpha);
@@ -108,8 +154,16 @@ composite_fwd_kernel(const float* __restrict__ data, const int32_t* __restrict__
           break;
         }
         const float w = alpha * T;
-#pragma unroll
-        for (int f = 0; f < 8; ++f) acc[f] = fmaf(w, s_rows[6 + f][i], acc[f]);
+        const float4 g2 = s4[2 * kBatch + i];  // b, depth, fx, fy
+        const float4 g3 = s4[3 * kBatch + i];  // fz, one
+        acc[0] = fmaf(w, g1.z, acc[0]);
+        acc[1] = fmaf(w, g1.w, acc[1]);
+        acc[2] = fmaf(w, g2.x, acc[2]);
+        acc[3] = fmaf(w, g2.y, acc[3]);
+        acc[4] = fmaf(w, g2.z, acc[4]);
+        acc[5] = fmaf(w, g2.w, acc[5]);
+        acc[6] = fmaf(w, g3.x, acc[6]);
+        acc[7] = fmaf(w, g3.y, acc[7]);
         T = t_next;
         if (w > best_w) {
           best_w = w;
@@ -122,9 +176,7 @@ composite_fwd_kernel(const float* __restrict__ data, const int32_t* __restrict__
   }
 
   const long long o = static_cast<long long>(tile) * npix + p;
-  float4* a4 = reinterpret_cast<float4*>(accum + o * 8);
-  a4[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  a4[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  ex4dgs::store_accum_dense(s4, acc, accum + static_cast<long long>(tile) * npix * 8);
   tfinal[o] = T;
   bestidx[o] = track_idx ? best_id : -1;
 }
@@ -135,7 +187,10 @@ extern "C" int composite_fwd(const void* data, const void* gid, const void* star
                              const void* stops, void* accum, void* tfinal, void* bestidx,
                              long long capacity, int num_tiles, int grid_x, int tile_x,
                              int tile_y, int track_idx, void* stream) {
-  composite_fwd_kernel<<<num_tiles, tile_x * tile_y, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int npix = tile_x * tile_y;
+  // The staging buffer: the batch, or the dense store's P float4 pairs.
+  const size_t stage = sizeof(float4) * max(kGroups * kBatch, 2 * npix);
+  composite_fwd_kernel<<<num_tiles, npix, stage, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(data), static_cast<const int32_t*>(gid),
       static_cast<const int32_t*>(starts), static_cast<const int32_t*>(stops),
       static_cast<float*>(accum), static_cast<float*>(tfinal), static_cast<int32_t*>(bestidx),

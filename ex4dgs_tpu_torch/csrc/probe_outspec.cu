@@ -5,13 +5,17 @@
 // Replaces the TPU probes of tools/tpu_probes/_tpu_outspec.py, one C entry
 // point per call site. One block per tile, one thread per pixel (512):
 //
-//   outspec_a (kernel_a, run_a)  kernel A's output layout: two float4 of 1.0
-//             into accum[T, 512, 8], 2.0 into tfinal[T, 512, 1] and the int 3
-//             into bestidx[T, 512, 1], stored as csrc/composite_fwd.cu stores
-//             them;
+//   outspec_a (kernel_a, run_a)  kernel A's output layout as the TPU probe
+//             asks it: two float4 of 1.0 into accum[T, 512, 8], 2.0 into
+//             tfinal[T, 512, 1] and the int 3 into bestidx[T, 512, 1], each
+//             thread storing its own pixel's two float4 straight from
+//             registers (the pattern kernel A used before it took the dense
+//             store of composite_common.cuh);
 //   outspec_b (kernel_b, run_b)  1.0 into the wide out[T, 16, 512], thread p
 //             writing out[t, r, p] for r = 0..15;
-//   outspec_c (kernel_b, run_c)  two float4 of 1.0 into accum[T, 512, 8] alone;
+//   outspec_c (kernel_b, run_c)  1.0 into accum[T, 512, 8] alone, through
+//             composite_common.cuh's dense store, restage included: kernel
+//             A's accum store measured alone;
 //   outspec_d (kernel_d, run_d)  kernel B's input layout: each pixel reads its
 //             8 + 1 + 1 + 1 floats of gacc[T, 512, 8] and a1, a2, a3
 //             [T, 512, 1], as csrc/composite_bwd.cu reads gacc, acdot, gend and
@@ -27,6 +31,8 @@
 // the memory rate.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "composite_common.cuh"
 
 namespace {
 
@@ -78,9 +84,9 @@ __global__ void __launch_bounds__(kPix) outspec_b_kernel(float* __restrict__ out
 }
 
 __global__ void __launch_bounds__(kPix) outspec_c_kernel(float* __restrict__ accum) {
-  float4* a4 = reinterpret_cast<float4*>(accum + pixel_index() * 8);
-  a4[0] = make_float4(1.f, 1.f, 1.f, 1.f);
-  a4[1] = make_float4(1.f, 1.f, 1.f, 1.f);
+  __shared__ float4 stage[2 * kPix];
+  const float acc[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
+  ex4dgs::store_accum_dense(stage, acc, accum + static_cast<long long>(blockIdx.x) * kPix * 8);
 }
 
 __global__ void __launch_bounds__(kPix)

@@ -4,8 +4,9 @@ Each kernel source is compiled with nvcc for sm_90a into a shared library
 with a plain C interface, at its first launch, into `_build/` beside this
 file (listed in .gitignore), and loaded with ctypes (`load_all` builds
 every source at once, one nvcc each). A source exports one C function per
-entry point (`SOURCES`). A library is named by the hash of its source, so
-an edited kernel is rebuilt. Importing this module needs neither nvcc nor
+entry point (`SOURCES`). A library is named by the hash of its source, of
+every header (`*.cuh`) in the source's directory and of the nvcc flags, so
+an edited kernel, or an edited header it may include, is rebuilt. Importing this module needs neither nvcc nor
 a GPU: nothing is built or loaded until a kernel is launched on a CUDA
 tensor.
 
@@ -79,25 +80,43 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from csrc/ at first use")
 
 
+def source_digest(src: Path) -> str:
+    """The hash that names src's library: src, every csrc-style header
+    (`*.cuh`) beside it, by name and content, and the nvcc flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
+def build(src: Path, out_dir: Path = BUILD_DIR) -> tuple[Path, str]:
+    """(library path, nvcc's output) of source `src`, compiled into out_dir
+    unless a library of the same digest is there already ("" then)."""
+    out = out_dir / f"lib{src.stem}_{source_digest(src)[:16]}.so"
+    if out.exists():
+        return out, ""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    text = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {src}:\n{text}")
+    os.replace(tmp, out)
+    return out, text
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of source `name`, built from csrc/<name>.cu if no
-    library of this source exists yet."""
+    library of this source (and of the headers beside it) exists yet."""
     with _locks[name]:
         if name in _libs:
             return _libs[name]
-        src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        out = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                                  capture_output=True, text=True)
-            build_logs[name] = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {src}:\n{build_logs[name]}")
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
+        path, text = build(CSRC / f"{name}.cu")
+        if text:
+            build_logs[name] = text
+        lib = ctypes.CDLL(str(path))
         for entry in SOURCES[name]:
             fn = getattr(lib, entry)
             fn.argtypes = _SIGNATURES[entry]

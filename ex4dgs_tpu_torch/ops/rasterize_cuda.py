@@ -14,6 +14,10 @@ for CUDA tensors and takes the plain version `composite_tiles_plain` for CPU
 tensors; the accumulator channels of both are (r, g, b, depth, fx, fy, fz,
 one) = data rows 6-13. `composite_tiles_bwd` does the same for the backward
 kernel (csrc/composite_bwd.cu) and `composite_tiles_bwd_plain`.
+`warp_cull_plain` (with `warp_boxes`) is the forward kernel's per-warp cull
+(csrc/composite_common.cuh) in PyTorch, for the tests and chip_smoke.py's
+pair counts; `tfinal_rel_err` is the relative tfinal check (TF_RTOL) that
+holds the forward kernel to its plain version behind a small transmittance.
 
 Gradients: `CompositeTiles` is the custom VJP of the JAX package's
 `composite_tiles` and `PackSorted` that of its pack gather
@@ -127,6 +131,75 @@ def composite_tiles_plain(data, gid, starts, stops, *, grid_x: int, tile_x: int 
         if track_idx:
             bestidx[s] = carry.best_idx[..., None]
     return accum, tfinal, bestidx
+
+
+def warp_boxes(grid_x: int, num_tiles: int, tile_x: int, tile_y: int,
+               device) -> torch.Tensor:
+    """f32 [T, P // 32, 4]: the (x0, x1, y0, y1) pixel-centre bounding box
+    of each warp's 32 pixels (pixels 32w .. 32w + 31 of the tile, p = y *
+    tile_x + x), as csrc/composite_common.cuh::warp_box forms it: a warp
+    that spans rows covers every column of the tile."""
+    first = torch.arange(0, tile_x * tile_y, 32, device=device)
+    r0, r1 = first // tile_x, (first + 31) // tile_x
+    wraps = r1 != r0
+    c0 = torch.where(wraps, 0, first - r0 * tile_x)
+    c1 = torch.where(wraps, tile_x - 1, first + 31 - r1 * tile_x)
+    t = torch.arange(num_tiles, device=device)[:, None]
+    tx0, ty0 = (t % grid_x) * tile_x, (t // grid_x) * tile_y
+    return torch.stack([tx0 + c0, tx0 + c1, ty0 + r0, ty0 + r1], dim=-1).float()
+
+
+def warp_cull_plain(xy, conic, opacity, box):
+    """The per-warp cull of csrc/composite_common.cuh::warp_skips in
+    PyTorch, operation for operation: True where no pixel of the warp's box
+    can pass the kernel's exact per-pixel test, so that the warp skips the
+    instance. xy [..., 2], conic [..., 3], opacity [...] and box [..., 4]
+    (warp_boxes) broadcast against each other; all float32. The tests and
+    chip_smoke.py's pair counts use it; no path of the port runs it."""
+    x, y = xy[..., 0], xy[..., 1]
+    a, b, c = conic[..., 0], conic[..., 1], conic[..., 2]
+    x0, x1, y0, y1 = box.unbind(-1)
+    lx, hx = x - x1, x - x0
+    ly, hy = y - y1, y - y0
+
+    def edge_min(p, q, s, lo, hi):  # min over t in [lo, hi] of p t^2 + 2 b t s + q s^2
+        t = torch.fmin(torch.fmax(-(b * s) / p, lo), hi)
+        return p * t * t + 2.0 * b * t * s + q * s * s
+
+    inside = (lx <= 0.0) & (hx >= 0.0) & (ly <= 0.0) & (hy >= 0.0)
+    edges = torch.fmin(torch.fmin(edge_min(a, c, ly, lx, hx), edge_min(a, c, hy, lx, hx)),
+                       torch.fmin(edge_min(c, a, lx, ly, hy), edge_min(c, a, hx, ly, hy)))
+    qmin = torch.where(inside, torch.zeros_like(edges), edges)
+    bx = torch.fmax(lx.abs(), hx.abs())
+    by = torch.fmax(ly.abs(), hy.abs())
+    m = a * bx * bx + c * by * by + 2.0 * b.abs() * bx * by
+    lim = 2.0 * torch.log(255.0 * opacity) + 1e-4 + 1e-5 * m
+    finite = (torch.isfinite(xy).all(-1) & torch.isfinite(conic).all(-1)
+              & torch.isfinite(opacity))
+    definite = (a > 0.0) & (a * c - b * b > 0.0)
+    return ~(opacity >= comp.ALPHA_MIN) | (finite & definite & (qmin > lim))
+
+
+# The forward kernel's tfinal against its plain version, relative to the
+# plain value: the two multiply the same factors in another association (the
+# plain version's chunked cumprod), a few ulp apart (2.1e-6 on the bench
+# frame). A contributing pair that the cull dropped would change tfinal by a
+# factor of at most 1 - 1/255, 3.9e-3 relative, so TF_RTOL sits well below
+# that and far above the rounding. Pixels on the latch are left out: where the
+# last product lands within rounding of T_EPS, one version applies the sample
+# and the other latches before it, and their tfinal differ by that sample's
+# 1 - alpha (3.6e-2 on the bench frame, for the kernel without the cull as
+# with it); the version that applied it then holds a tfinal within TF_RTOL of
+# T_EPS.
+TF_RTOL = 1e-3
+
+
+def tfinal_rel_err(tf_k, tf_p) -> tuple[float, int]:
+    """(largest |tf_k - tf_p| / tf_p over the pixels off the latch, the
+    number of pixels on it): to be held to TF_RTOL."""
+    on_latch = torch.minimum(tf_k, tf_p) < comp.T_EPS * (1 + TF_RTOL)
+    rel = torch.where(on_latch, 0.0, (tf_k - tf_p).abs() / tf_p)
+    return rel.max().item(), int(on_latch.sum().item())
 
 
 def composite_tiles_bwd(data, starts, stops, gacc, acdot, gend, tfinal, *, grid_x: int,

@@ -25,6 +25,7 @@ from ex4dgs_tpu_torch.ops import rasterize_cuda as trc
 from ex4dgs_tpu_torch.ops import rasterize_tiled as trt
 from ex4dgs_tpu_torch.ops.binning import Binning, bin_gaussians
 from ex4dgs_tpu_torch.ops.projection import Projected
+from ex4dgs_tpu_torch.ops.rasterize_tiled import tile_pixels
 
 torch.set_num_threads(2)
 
@@ -169,42 +170,132 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("tile", [(32, 16), (16, 16)], ids=["32x16", "16x16"])
-@pytest.mark.parametrize("track_idx", [True, False])
-def test_kernel_matches_plain_on_card(cuda_device, tile, track_idx):
-    """csrc/composite_fwd.cu against composite_tiles_plain on the same
-    packed buffer, on the card: accum and tfinal within 2e-5 (the same
-    per-pair arithmetic; the kernel accumulates features with fused
-    multiply-adds), ids on >= 99.9% of pixels."""
-    from ex4dgs_tpu_torch.synthetic import make_scene, ring_cameras
+def _adversarial_frame(tile, device, grid=(4, 3), per_tile=320, seed=5):
+    """A packed frame built to catch a dropped pair: in every tile, splats
+    whose means straddle the warps' row boundaries, thin ellipses (axis
+    ratio 10-1000), and opacities that put a splat's best pixel of the tile
+    within a few 1e-7 of the alpha floor. Returns (data [16, C], gid [C],
+    starts, stops, grid_x); numpy from a seed, no JAX."""
+    rng = np.random.default_rng(seed)
+    tx, ty = tile
+    gx, gy = grid
+    cols = []
+    counts = rng.integers(per_tile // 2, per_tile + 1, gx * gy)
+    counts[1] = 0  # an empty tile
+    for t, n in enumerate(counts):
+        x0, y0 = (t % gx) * tx, (t // gx) * ty
+        px, py = np.meshgrid(np.arange(tx) + x0, np.arange(ty) + y0)
+        pix = np.stack([px.ravel(), py.ravel()], -1).astype(np.float64)
+        kind = rng.integers(0, 3, n)
+        rows_per_warp = max(1, 32 // tx)
+        edge = y0 + rows_per_warp * rng.integers(0, max(1, ty // rows_per_warp), n)
+        xy = np.stack([rng.uniform(x0 - 12, x0 + tx + 12, n),
+                       np.where(kind == 0, edge - rng.choice([0.5, 1.0, 0.0], n),
+                                rng.uniform(y0 - 12, y0 + ty + 12, n))], -1)
+        size = np.exp(rng.uniform(np.log(0.5), np.log(15.0), n))
+        ratio = np.where(kind == 1, 10.0 ** rng.uniform(1, 3, n), 10.0 ** rng.uniform(0, 0.5, n))
+        th = rng.uniform(0, np.pi, n)
+        c, s_ = np.cos(th), np.sin(th)
+        l1, l2 = 1 / size**2, 1 / (size * ratio) ** 2
+        conic = np.stack([c * c * l1 + s_ * s_ * l2, c * s_ * (l1 - l2),
+                          s_ * s_ * l1 + c * c * l2], -1).astype(np.float32)
+        xy = xy.astype(np.float32)
+        d = xy[:, None, :].astype(np.float64) - pix[None]
+        cf = conic.astype(np.float64)[:, None]
+        q = cf[..., 0] * d[..., 0] ** 2 + 2 * cf[..., 1] * d[..., 0] * d[..., 1] \
+            + cf[..., 2] * d[..., 1] ** 2
+        floor = np.exp(np.minimum(q.min(1) / 2, 5.5)) / 255 \
+            * (1 + rng.choice([-1e-6, -1e-7, 0.0, 1e-7, 1e-6], n))
+        op = np.where(kind == 2, floor, rng.uniform(0.05, 1.0, n))
+        col = np.zeros((16, n), np.float32)
+        col[0:2], col[2:5], col[5] = xy.T, conic.T, op
+        col[6:9] = rng.uniform(0, 1, (3, n))
+        col[9] = np.sort(rng.uniform(1, 10, n))
+        col[10:13] = rng.normal(size=(3, n))
+        col[13] = 1.0
+        cols.append(col)
+    data = np.concatenate(cols, 1)
+    stops = np.cumsum(counts).astype(np.int32)
+    starts = (stops - counts).astype(np.int32)
+    gid = np.arange(data.shape[1], dtype=np.int32)
+    return (torch.from_numpy(data).to(device), torch.from_numpy(gid).to(device),
+            torch.from_numpy(starts).to(device), torch.from_numpy(stops).to(device), gx)
+
+
+def _scene_frame(tile, device):
+    """A packed frame of a small make_scene render at t = 2.5."""
+    from ex4dgs_tpu_torch.kernel_config import KernelConfig
     from ex4dgs_tpu_torch.models.temporal import point_data_at_t
     from ex4dgs_tpu_torch.ops.projection import tile_grid
     from ex4dgs_tpu_torch.rendering import preprocess_points
-    from ex4dgs_tpu_torch.kernel_config import KernelConfig
+    from ex4dgs_tpu_torch.synthetic import make_scene, ring_cameras
 
-    dev = cuda_device
     kcfg = KernelConfig(tile_x=tile[0], tile_y=tile[1])
-    model, cfg = make_scene(n_static=4000, n_dynamic=400, seed=3, device=dev)
-    cam = ring_cameras(1, 3.0, 200, 120, far=cfg.far, device=dev)[0]
+    model, cfg = make_scene(n_static=4000, n_dynamic=400, seed=3, device=device)
+    cam = ring_cameras(1, 3.0, 200, 120, far=cfg.far, device=device)[0]
     pts = point_data_at_t(model, cfg, 2.5)
     proj, colors = preprocess_points(pts, cam, cfg, near=cfg.near, far=cfg.far,
                                      kernel_cfg=kcfg)
     gx, gy = tile_grid(cam.width, cam.height, *tile)
     binning = bin_gaussians(proj, gx, gy, 1 << 17)
     assert int(binning.total) <= 1 << 17
-    flow = torch.zeros((proj.xy.shape[0], 3), device=dev)
+    flow = torch.zeros((proj.xy.shape[0], 3), device=device)
     data, gid = trc.pack_sorted(proj, colors, flow, binning)
-    args = (data, gid, binning.tile_start, binning.tile_stop)
+    return data.detach(), gid, binning.tile_start, binning.tile_stop, gx
+
+
+def test_adversarial_frame_is_meaningful():
+    """The adversarial frame's near-threshold splats sit on both sides of
+    the alpha floor, and the plain version composites it (on the CPU)."""
+    tile = (16, 16)
+    data, gid, starts, stops, gx = _adversarial_frame(tile, "cpu")
+    accum, tfinal, bestidx = trc.composite_tiles_plain(data, gid, starts, stops, grid_x=gx,
+                                                       tile_x=16, tile_y=16)
+    assert bool(torch.isfinite(accum).all()) and (tfinal < 1).float().mean() > 0.3
+    assert bool((tfinal[1] == 1).all()) and bool((bestidx[1] == -1).all())  # the empty tile
+    pixf = tile_pixels(gx, starts.shape[0] // gx, 16, 16, "cpu").double()
+    below = above = 0
+    for t in range(starts.shape[0]):
+        r = data[:6, starts[t]:stops[t]].double()
+        d = r[None, 0:2].permute(0, 2, 1) - pixf[t][:, None, :]  # [P, n, 2]
+        q = r[2] * d[..., 0] ** 2 + 2 * r[3] * d[..., 0] * d[..., 1] + r[4] * d[..., 1] ** 2
+        best = r[5] * torch.exp(-q.amin(0) / 2) * 255  # best alpha of the tile, x 255
+        below += int(((best < 1) & (best > 1 - 2e-6)).sum())
+        above += int(((best >= 1) & (best < 1 + 2e-6)).sum())
+    assert below > 50 and above > 50, (below, above)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", ["scene", "adversarial"])
+@pytest.mark.parametrize("tile", [(32, 16), (16, 16), (8, 4), (24, 4)],
+                         ids=["32x16", "16x16", "8x4", "24x4"])
+@pytest.mark.parametrize("track_idx", [True, False])
+def test_kernel_matches_plain_on_card(cuda_device, frame, tile, track_idx):
+    """csrc/composite_fwd.cu against composite_tiles_plain on the same
+    packed buffer, on the card: accum and tfinal within 2e-5 (the same
+    per-pair arithmetic; the kernel accumulates features with fused
+    multiply-adds), tfinal also within TF_RTOL of itself off the latch (a
+    contributing pair that the per-warp cull dropped would move it by at
+    least 1/255 of itself; trc.tfinal_rel_err), ids on >= 99.9% of pixels,
+    and two launches bit-equal. The adversarial frame puts splats across
+    warp rows, thin ellipses and opacities on the alpha floor; at 24x4 a
+    warp wraps across two rows."""
+    make = _scene_frame if frame == "scene" else _adversarial_frame
+    data, gid, starts, stops, gx = make(tile, cuda_device)
+    args = (data, gid, starts, stops)
     kw = dict(grid_x=gx, tile_x=tile[0], tile_y=tile[1], track_idx=track_idx)
     before = kernels.launches["composite_fwd"]
     got = trc.composite_tiles_fwd(*args, **kw)
+    again = trc.composite_tiles_fwd(*args, **kw)
     torch.cuda.synchronize()
-    assert kernels.launches["composite_fwd"] == before + 1
+    assert kernels.launches["composite_fwd"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = trc.composite_tiles_plain(*args, **kw)
     for a, w, atol in zip(got[:2], want[:2], (2e-5, 2e-5)):
         assert a.shape == w.shape and bool(torch.isfinite(a).all())
         assert (a - w).abs().max().item() <= atol
+    rel, _ = trc.tfinal_rel_err(got[1], want[1])
+    assert rel <= trc.TF_RTOL, rel
     agree = (got[2] == want[2]).float().mean().item()
     assert agree >= 0.999, agree
     if not track_idx:

@@ -19,7 +19,7 @@ import sys
 import pytest
 import torch
 
-from ex4dgs_tpu_torch import kernels, rendering, synthetic
+from ex4dgs_tpu_torch import bench_frame, kernels, rendering, synthetic
 from ex4dgs_tpu_torch.kernel_config import KernelConfig
 from ex4dgs_tpu_torch.models import optimizer, state
 from ex4dgs_tpu_torch.models.config import ModelConfig, OptimizationConfig
@@ -149,6 +149,31 @@ def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry):
         assert out.model.device.type == "cpu" and bool(torch.isfinite(out.loss))
     if entry == "probe_make_src":
         assert out.device.type == "cpu" and out.shape == (16, 4096)
+
+
+def test_bench_scene_needs_cuda_unless_told_cpu(no_cuda):
+    """The bench scene is full size, so only its refusal is run here."""
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            bench_frame.bench_scene(device)
+
+
+@pytest.mark.parametrize("tile", [(32, 16), (24, 4)], ids=["32x16", "24x4"])
+def test_pack_frame_packs_what_the_render_bins(tile):
+    """bench_frame.pack_frame on a small scene: the instances the render
+    bins at the same tile shape, detached, with ids of projected
+    Gaussians."""
+    model, cfg, cam = _small_model()
+    scene = bench_frame.BenchScene(model, cfg, cam, total=0, capacity=65536)
+    frame = bench_frame.pack_frame(scene, *tile)
+    res = rendering.render(cam, model, cfg, t=1.0, bg=(0, 0, 0), capacity=65536,
+                           kernel_cfg=KernelConfig(*tile), device="cpu")
+    total = int(res.binning_total)
+    assert 0 < total == int(frame.stops[-1]) and int(frame.starts[0]) == 0
+    assert frame.data.shape == (16, 65536) and not frame.data.requires_grad
+    assert frame.grid_x * tile[0] >= cam.width and frame.num_points == res.radii.shape[0]
+    ids = frame.gid[:total]
+    assert bool((ids >= 0).all()) and int(ids.max()) < frame.num_points
 
 
 def test_render_refuses_tensors_on_another_device():
