@@ -36,8 +36,14 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    and seeded O(1) cotangents go through the backward-compositing kernel
    and its plain version; element by element |kernel - plain| <= 1e-5 |plain|
    + 1e-6 max |plain| of its row group (xy, conic, opacity, features),
-   columns outside every tile's range exactly zero, two launches bit-equal.
-   Timed and bounded as in phase 3.
+   columns outside every tile's range exactly zero, two launches bit-equal,
+   and bit-equal to its twin (ops/rasterize_cuda.py::composite_tiles_bwd_walk:
+   the kernel's arithmetic and order of sums in PyTorch).
+   Timed and bounded as in phase 3, beside the counts of its walk from the
+   cull's twin: warp steps with and without the per-warp cull, the steps
+   with an applied lane (the ones it reduces) spread by 1, 2-8 and 9-32
+   applied lanes, and the shuffles those steps take with a butterfly per
+   value and with the kernel's transposed reduction.
 6. training path: train.step.train_step at full width (OptimizationConfig
    defaults, spatial_lr_scale 3.0, gt zeros, t = i % 5, iteration 100, the
    train step of bench.py), 31 steps carrying model and optimizer state.
@@ -64,6 +70,9 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    of 20 or 30 is reported), and no launch may beat its bytes bound by more
    than 5% (a reading that does was served by L2, not by memory). P1 also
    runs at kernel A's own starts: the bench frame's nonempty tile starts.
+   P2a and P2b are then timed in turns against the fill_ calls that write
+   the same outputs (kernel, fills, fills, kernel), and each ratio is set
+   beside the spread of its turns.
 
 The lines before the last are the card's name and power limit (as
 nvidia-smi prints them) and a JSON object with one entry per kernel; the
@@ -112,12 +121,9 @@ SLOTS_EVAL, SLOTS_APPLIED = 15, 13
 # every contributing pair and the reciprocal of every applied one (as for
 # kernel A, the pairs that do not contribute are not charged).
 SLOTS_EVAL_B, SLOTS_APPLIED_B = 15, 57
-BWD_ROWS = {"xy": slice(0, 2), "conic": slice(2, 5), "opacity": slice(5, 6),
-            "features": slice(6, 14)}
-# Kernel B sums each instance's pixels in another order than its plain
-# version: an element may differ by BWD_RTOL of itself plus BWD_ATOL of its
-# row group's largest magnitude.
-BWD_RTOL, BWD_ATOL = 1e-5, 1e-6
+# Shuffles per lane of a warp step that reduces kernel B's 14 values: a
+# butterfly per value and the kernel's transposed reduction.
+SHUFFLES_BUTTERFLY, SHUFFLES_TRANSPOSED = 5 * 14, 8 + 4 + 2 + 1 + 1
 TRAIN_STEPS = 31  # t = i % 5: the first and the last step both render t = 0
 # The probe kernels and the TPU kernels they replace.
 PROBE_REPLACES = {
@@ -210,7 +216,9 @@ def walked_pairs(data, starts, stops, grid_x, tile_x, tile_y, chunk=64, tile_bat
     from the tile's start, between two barriers) the culled walk of the
     block's slowest warp for every warp: the lane-pairs the block holds while
     its warps wait at the batch's barrier. `dropped` counts contributing
-    pairs that the twin skips: it must be 0."""
+    pairs that the twin skips: it must be 0. `steps_applied` counts the
+    warp steps with an applied pair (the steps kernel B reduces), and
+    `steps_applied_1`, `_2_8`, `_9_32` spread them by applied lanes."""
     from ex4dgs_tpu_torch.ops import compositing as comp
     from ex4dgs_tpu_torch.ops.rasterize_cuda import warp_boxes, warp_cull_plain
     from ex4dgs_tpu_torch.ops.rasterize_tiled import tile_pixels
@@ -225,7 +233,8 @@ def walked_pairs(data, starts, stops, grid_x, tile_x, tile_y, chunk=64, tile_bat
     boxes = warp_boxes(grid_x, T, tile_x, tile_y, dev)
     lanes = torch.arange(chunk, device=dev)[None, :]
     n = dict.fromkeys(("evaluated", "contributing", "applied", "warp_walked",
-                       "warp_walked_culled", "slowest_warp", "dropped"), 0)
+                       "warp_walked_culled", "slowest_warp", "dropped", "steps_applied",
+                       "steps_applied_1", "steps_applied_2_8", "steps_applied_9_32"), 0)
     for b in range(0, T, tile_batch):
         s = slice(b, b + tile_batch)
         st, sp = starts[s].long(), stops[s].long()
@@ -244,8 +253,13 @@ def walked_pairs(data, starts, stops, grid_x, tile_x, tile_y, chunk=64, tile_bat
             contributing = m & (cum_excl >= comp.T_EPS)
             n["evaluated"] += int(live.sum().item())
             n["contributing"] += int(contributing.sum().item())
-            n["applied"] += int((m & (cum >= comp.T_EPS)).sum().item())
+            applied = m & (cum >= comp.T_EPS)
+            n["applied"] += int(applied.sum().item())
             B = live.shape[0]
+            lanes_applied = applied.reshape(B, nw, 32, -1).sum(2)  # [B, W, C]
+            for key, lo_, hi_ in (("steps_applied", 1, 32), ("steps_applied_1", 1, 1),
+                                  ("steps_applied_2_8", 2, 8), ("steps_applied_9_32", 9, 32)):
+                n[key] += int(((lanes_applied >= lo_) & (lanes_applied <= hi_)).sum().item())
             warp_live = live.reshape(B, nw, 32, -1).any(2)  # [B, W, C]
             skip = warp_cull_plain(xy[ic][:, None], conic[ic][:, None], opac[ic][:, None],
                                    boxes[s][:, :, None, :])
@@ -425,6 +439,26 @@ def probe_phase(dev, starts, stops, card: str) -> list[dict]:
                                 "; ".join(notes) + f"; plain {plain:.4f} ms, library "
                                 + ("none" if library is None else f"fill_ {library:.4f} ms"))
         entries.append(entry(name, err, med, plain, bound, library))
+    # P2a and P2b against the fill_ calls that write the same outputs, in
+    # turns (kernel, fills, fills, kernel; 20 launches each), so that a change
+    # of clock during the phase falls on both.
+    kernel_calls = outspec.calls(t, dev, ones)
+    rivals = {"a": (kernel_calls["a"], lambda: [fills[k]() for k in ("c", "a1", "ai")]),
+              "b": (kernel_calls["b"], fills["b"])}
+    for key, (kern, lib) in rivals.items():
+        turns = {"kernel": [], "fill_": []}
+        for who in ("kernel", "fill_", "fill_", "kernel"):
+            fn = kern if who == "kernel" else lib
+            turns[who].append(statistics.median(readings_ms(fn, dev, 20)))
+        mean = {who: sum(r) / 2 for who, r in turns.items()}
+        spread = max(abs(r[0] - r[1]) / mean[who] for who, r in turns.items())
+        ratio = mean["kernel"] / mean["fill_"]
+        log(f"# outspec_{key} in turns against {'three fill_ calls' if key == 'a' else 'fill_'}: "
+            f"kernel medians {turns['kernel'][0]:.4f}, {turns['kernel'][1]:.4f} ms, fill_ "
+            f"medians {turns['fill_'][0]:.4f}, {turns['fill_'][1]:.4f} ms; kernel / fill_ "
+            f"{ratio:.3f}, spread of the turns {spread:.3f}: "
+            f"{'slower beyond the spread' if ratio - 1 > spread else 'within the spread'}; "
+            f"{card}")
     return entries
 
 
@@ -433,11 +467,13 @@ def main() -> int:
         fail("no CUDA device: this script measures the port on a GPU")
     import ex4dgs_tpu_torch  # noqa: F401  (sets the precision policy)
     from ex4dgs_tpu_torch import kernels
-    from ex4dgs_tpu_torch.bench_frame import (PROBE_CAPACITY, H, W, bench_scene, cuda_ms,
-                                              pack_frame)
+    from ex4dgs_tpu_torch.bench_frame import (PROBE_CAPACITY, H, W, bench_scene, cotangents,
+                                              cuda_ms, pack_frame)
     from ex4dgs_tpu_torch.models.config import OptimizationConfig
     from ex4dgs_tpu_torch.models.optimizer import init_state
-    from ex4dgs_tpu_torch.ops.rasterize_cuda import (TF_RTOL, composite_tiles_bwd_plain,
+    from ex4dgs_tpu_torch.ops.rasterize_cuda import (BWD_ATOL, BWD_ROWS, BWD_RTOL, TF_RTOL,
+                                                     bwd_errors, composite_tiles_bwd_plain,
+                                                     composite_tiles_bwd_walk,
                                                      composite_tiles_plain, tfinal_rel_err)
     from ex4dgs_tpu_torch.rendering import render
     from ex4dgs_tpu_torch.synthetic import make_scene, ring_cameras
@@ -588,10 +624,7 @@ def main() -> int:
     report_profile("render t=1 track_idx=True", lambda: frame(1.0, True), card)
 
     # -- 5. backward kernel vs plain -------------------------------------
-    gen = torch.Generator(device=dev).manual_seed(0)
-    gacc = torch.randn(acc_k.shape, device=dev, generator=gen)
-    gend = torch.randn(tf_k.shape, device=dev, generator=gen)
-    acdot = (acc_k[..., 0:3] * gacc[..., 0:3]).sum(-1, keepdim=True)
+    gacc, acdot, gend = cotangents(acc_k)
     bargs = (data, starts, stops, gacc, acdot, gend, tf_k)
     bkw = dict(grid_x=gx, tile_x=tx, tile_y=ty)
     d_k = kernels.composite_bwd(*bargs, **bkw)
@@ -599,28 +632,29 @@ def main() -> int:
     d_p = composite_tiles_bwd_plain(*bargs, **bkw)
     torch.cuda.synchronize()
     lo, hi = int(starts[0].item()), int(stops[-1].item())
-    errs, worst, median, floor = {}, {}, {}, {}
+    errs = bwd_errors(d_k, d_p, lo, hi)
+    median = {}
     for name, rows in BWD_ROWS.items():
-        ref = d_p[rows, lo:hi]
-        diff = (d_k[rows, lo:hi] - ref).abs()
-        mag = ref.abs()
-        floor[name] = BWD_ATOL * mag.max().item()
-        limit = BWD_RTOL * mag + floor[name]
-        errs[name] = diff.max().item()
-        worst[name] = (diff / limit.clamp_min(1e-30)).max().item()  # <= 1 passes
+        mag = d_p[rows, lo:hi].abs()
         median[name] = mag[mag > 0].median().item() if bool((mag > 0).any()) else 0.0
     outside_zero = not (d_k[:, :lo].any() or d_k[:, hi:].any() or d_k[14:].any())
     bit_equal = torch.equal(d_k, d_k2)
     finite_b = bool(torch.isfinite(d_k).all())
+    t0 = time.perf_counter()
+    twin_equal = torch.equal(d_k, composite_tiles_bwd_walk(*bargs, **bkw))
+    twin_s = time.perf_counter() - t0
     log(f"# composite_bwd vs plain, per element |kernel - plain| <= {BWD_RTOL:g} |plain| + "
         f"{BWD_ATOL:g} max |plain| per row group: "
-        + ", ".join(f"{k} max err {errs[k]:.3g}, worst err/limit {worst[k]:.3g}, floor "
-                    f"{floor[k]:.3g}, median non-zero |plain| {median[k]:.3g}" for k in errs)
+        + ", ".join(f"{k} max err {e[0]:.3g}, worst err/limit {e[1]:.3g}, floor "
+                    f"{e[2]:.3g}, median non-zero |plain| {median[k]:.3g}"
+                    for k, e in errs.items())
         + f"; outside the ranges zero {outside_zero}; two launches bit-equal {bit_equal}; "
-        f"finite {finite_b}")
-    if not (finite_b and outside_zero and bit_equal and max(worst.values()) <= 1.0):
-        fail("composite_bwd disagrees with its plain version")
-    err_bwd = max(errs.values())
+        f"finite {finite_b}; bit-equal to its twin composite_tiles_bwd_walk {twin_equal} "
+        f"(the twin took {twin_s:.1f} s)")
+    if not (finite_b and outside_zero and bit_equal and twin_equal
+            and max(e[1] for e in errs.values()) <= 1.0):
+        fail("composite_bwd disagrees with its plain version or its twin")
+    err_bwd = max(e[0] for e in errs.values())
     del d_k2, d_p
     ms_b = cuda_ms(lambda: kernels.composite_bwd(*bargs, **bkw), reps=20)
     plain_ms_b = cuda_ms(lambda: composite_tiles_bwd_plain(*bargs, **bkw), reps=2, warmup=1)
@@ -634,6 +668,15 @@ def main() -> int:
         f"evaluated {evaluated}, contributing {contributing}, applied {applied}; bound "
         f"{bound_b:.4f} ms from contributing pairs (bytes {tb_bytes:.4f}, fp32 {tb_fp32:.4f}, "
         f"sfu {tb_sfu:.4f}), old bound from evaluated pairs {old_bound_b:.4f} ms; {card}")
+    steps = {k: pairs[k] // 32 for k in ("warp_walked", "warp_walked_culled")}
+    reduced = pairs["steps_applied"]
+    log(f"# composite_bwd walk (twin counts): warp steps {steps['warp_walked']} without the "
+        f"cull, {steps['warp_walked_culled']} with it; {reduced} with an applied lane "
+        f"({100 * reduced / max(steps['warp_walked_culled'], 1):.1f}% of the culled walk), "
+        f"of which {pairs['steps_applied_1']} with 1 applied lane, "
+        f"{pairs['steps_applied_2_8']} with 2-8 and {pairs['steps_applied_9_32']} with "
+        f"9-32; warp shuffle instructions {reduced * SHUFFLES_BUTTERFLY} with a butterfly "
+        f"per value, {reduced * SHUFFLES_TRANSPOSED} with the transposed reduction")
     if ms_b < bound_b:
         fail(f"composite_bwd read {ms_b:.4f} ms, below its bound {bound_b:.4f} ms")
     del bargs, gacc, gend, acdot, d_k, acc_k, tf_k, idx_k, data, gid

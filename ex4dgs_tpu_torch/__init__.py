@@ -18,7 +18,8 @@ counterpart is found by path:
   probes/     the layout probes of tools/tpu_probes/ (P1 `unaligned`, P2
               `outspec`), their kernels' plain versions and entry points
   bench_frame the bench scene and frame the kernels are measured on;
-              kernel_turns times the forward kernel against other builds
+              kernel_turns times either compositing kernel against other
+              builds of it
 
 Entry points put their tensors on `cuda` unless the caller passes
 `device="cpu"`; without a GPU they raise instead of falling back.

@@ -4,8 +4,9 @@
 clamped to log(0.02)) at 1352x1014, seen by one ring camera, with its
 instance capacity sized from a probe render at t = 1. `pack_frame` packs the
 instances at t = 1 for the forward kernel at a tile shape: the kernel's
-inputs exactly as the render path builds them. `cuda_ms` times a call with
-CUDA events. chip_smoke.py and kernel_turns.py both take the frame and the
+inputs exactly as the render path builds them. `cotangents` draws the
+backward kernel's seeded O(1) cotangents for the forward's outputs.
+`cuda_ms` times a call with CUDA events. chip_smoke.py and kernel_turns.py both take the frame and the
 timer from here.
 """
 from __future__ import annotations
@@ -76,6 +77,18 @@ def pack_frame(scene: BenchScene, tile_x: int = 32, tile_y: int = 16) -> Frame:
         flow = torch.zeros((proj.xy.shape[0], 3), device=proj.xy.device)
         data, gid = pack_sorted(proj, colors, flow, binning)
     return Frame(data, gid, binning.tile_start, binning.tile_stop, gx, proj.xy.shape[0])
+
+
+def cotangents(accum: torch.Tensor, seed: int = 0):
+    """(gacc f32 [T, P, 8], acdot f32 [T, P, 1], gend f32 [T, P, 1]): seeded
+    standard normal cotangents of the forward's accum and tfinal on accum's
+    device, and acdot = accum[..., :3] . gacc[..., :3], the backward
+    kernel's inputs beside the packed frame and the forward's tfinal."""
+    gen = torch.Generator(device=accum.device).manual_seed(seed)
+    gacc = torch.randn(accum.shape, device=accum.device, generator=gen)
+    gend = torch.randn((*accum.shape[:2], 1), device=accum.device, generator=gen)
+    acdot = (accum[..., 0:3] * gacc[..., 0:3]).sum(-1, keepdim=True)
+    return gacc, acdot, gend
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:

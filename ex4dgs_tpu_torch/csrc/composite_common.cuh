@@ -1,6 +1,9 @@
 // Device pieces shared by the compositing kernels and the layout probes
 // (NVIDIA Hopper, sm_90a):
 //
+//   stage_batch        a batch of instances of the packed buffer
+//                      data[16, capacity] staged in shared memory as four
+//                      float4 groups per instance;
 //   store_accum_dense  the per-pixel accumulators of one tile, accum[P, 8],
 //                      restaged through shared memory and stored so that a
 //                      warp's store covers 512 contiguous bytes;
@@ -20,6 +23,44 @@ namespace ex4dgs {
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = 1e-4f;
+
+// ---------------------------------------------------------------------------
+// The batch staging.
+//
+// Instance c of a batch sits in shared memory as four float4 groups,
+// s4[g * kBatch + c] holding data rows 4g .. 4g + 3:
+//
+//   g = 0  x  y  a  b        g = 2  blue  depth  fx  fy
+//   g = 1  c  op r  g        g = 3  fz    one    -   -
+//
+// so that a pixel's test of an instance is two broadcast 16-byte loads
+// (groups 0 and 1), and its colours and features come from the rest. A
+// thread loads four rows of one instance (each row a coalesced 4-byte read
+// of the feature-major buffer from the batch's arbitrary start) and writes
+// one float4; neighbouring threads write neighbouring float4s. Columns
+// c >= n are left as they were. Kernels A and B both stage through it.
+
+constexpr int kStageGroups = 4;
+
+// p: this thread's index in the block, npix: the block's threads.
+template <int kBatch>
+__device__ __forceinline__ void stage_batch(float4* s4, const float* __restrict__ data,
+                                            long long capacity, int base, int n, int p,
+                                            int npix) {
+  for (int k = p; k < kStageGroups * kBatch; k += npix) {
+    const int g = k / kBatch;
+    const int c = k - g * kBatch;
+    if (c < n) {
+      const float* col = data + 4 * g * capacity + base + c;
+      float4 v;
+      v.x = col[0];
+      v.y = col[capacity];
+      v.z = g < 3 ? col[2 * capacity] : 0.f;
+      v.w = g < 3 ? col[3 * capacity] : 0.f;
+      s4[k] = v;
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // The dense tile store.

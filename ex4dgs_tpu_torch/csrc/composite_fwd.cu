@@ -36,13 +36,11 @@
 //    order (a ballot mask, __ffs), which is still depth order. A skipped
 //    pair is one the exact test below would have skipped, so the outputs
 //    are those of the kernel without the cull, bit for bit.
-//  * Vectorised staging. The batch sits in shared memory as four float4
-//    groups per instance (x y a b | c op r g | b depth fx fy | fz one - -):
-//    an evaluated pair reads two broadcast 16-byte loads, an applied pair
-//    two more, where scalar rows took 6 and 8. A thread loads four rows of
-//    one instance (each row a coalesced 4-byte read of the feature-major
-//    buffer from the tile's arbitrary start) and writes one float4;
-//    neighbouring threads write neighbouring float4s.
+//  * Vectorised staging (composite_common.cuh::stage_batch, shared with
+//    kernel B). The batch sits in shared memory as four float4 groups per
+//    instance (x y a b | c op r g | b depth fx fy | fz one - -): an
+//    evaluated pair reads two broadcast 16-byte loads, an applied pair two
+//    more, where scalar rows took 6 and 8.
 //  * The dense accum store of composite_common.cuh, through the staging
 //    buffer (which is sized to at least P * 32 bytes for it).
 //
@@ -67,7 +65,6 @@ using ex4dgs::kAlphaMin;
 using ex4dgs::kTEps;
 
 constexpr int kBatch = 256;  // instances staged per shared-memory batch
-constexpr int kGroups = 4;   // float4 groups per staged instance: rows 0-13
 constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void __launch_bounds__(1024)
@@ -104,19 +101,7 @@ composite_fwd_kernel(const float* __restrict__ data, const int32_t* __restrict__
   for (int base = start; base < stop; base += kBatch) {
     const int n = min(kBatch, stop - base);
     __syncthreads();  // the previous batch is consumed by every pixel
-    for (int k = p; k < kGroups * kBatch; k += npix) {
-      const int g = k / kBatch;
-      const int c = k - g * kBatch;
-      if (c < n) {
-        const float* col = data + 4 * g * capacity + base + c;
-        float4 v;
-        v.x = col[0];
-        v.y = col[capacity];
-        v.z = g < 3 ? col[2 * capacity] : 0.f;
-        v.w = g < 3 ? col[3 * capacity] : 0.f;
-        s4[k] = v;
-      }
-    }
+    ex4dgs::stage_batch<kBatch>(s4, data, capacity, base, n, p, npix);
     for (int c = p; c < n; c += npix) s_gid[c] = gid[base + c];
     __syncthreads();
 
@@ -189,7 +174,7 @@ extern "C" int composite_fwd(const void* data, const void* gid, const void* star
                              int tile_y, int track_idx, void* stream) {
   const int npix = tile_x * tile_y;
   // The staging buffer: the batch, or the dense store's P float4 pairs.
-  const size_t stage = sizeof(float4) * max(kGroups * kBatch, 2 * npix);
+  const size_t stage = sizeof(float4) * max(ex4dgs::kStageGroups * kBatch, 2 * npix);
   composite_fwd_kernel<<<num_tiles, npix, stage, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(data), static_cast<const int32_t*>(gid),
       static_cast<const int32_t*>(starts), static_cast<const int32_t*>(stops),

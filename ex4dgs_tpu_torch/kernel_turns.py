@@ -1,23 +1,32 @@
-"""Time kernel A (csrc/composite_fwd.cu) in turns against other builds of
-its C entry point, on the bench frame, and compare their outputs bit for bit.
+"""Time kernel A (csrc/composite_fwd.cu) or kernel B (csrc/composite_bwd.cu)
+in turns against other builds of its C entry point, on the bench frame, and
+compare their outputs.
 
     python -m ex4dgs_tpu_torch.kernel_turns --other NAME=path/to/composite_fwd.cu ...
+    python -m ex4dgs_tpu_torch.kernel_turns --other NAME=path/to/composite_bwd.cu ...
 
-Each `--other` source exports `composite_fwd` with the signature of
-kernels.py (an earlier revision of the kernel, or a variant of it) and is
-built with the package's nvcc flags into `_build/` beside its source. The
-frame is bench_frame's (chip_smoke.py phase 3's), at t = 1, packed once per
-tile shape (TILES). At each tile shape the script
+Each `--other` source exports `composite_fwd` or `composite_bwd` with the
+signature of kernels.py (an earlier revision of the kernel, or a variant of
+it) and is built with the package's nvcc flags into `_build/` beside its
+source; the entry point it exports decides which committed kernel it is
+held against (with no `--other`, kernel A alone is timed). The frame is
+bench_frame's (chip_smoke.py phase 3's), at t = 1, packed once per tile
+shape (TILES). At each tile shape the script
 
-  * checks every build against the committed kernel: accum, tfinal and
-    bestidx bit-equal, or the largest differences;
-  * prints each build's tfinal_rel_err against the plain version (the
-    largest relative difference off the latch, held to TF_RTOL);
+  * checks every build against the committed kernel: bit-equal outputs, or
+    the largest differences, and names the other builds it is bit-equal to;
+  * holds every build to the plain version: kernel A's tfinal_rel_err off
+    the latch (TF_RTOL); kernel B's dgrad element by element (bwd_errors:
+    BWD_RTOL of itself plus BWD_ATOL of its row group's largest), on kernel
+    A's accum and tfinal of the frame and the seeded cotangents of
+    bench_frame.cotangents (chip_smoke.py phase 5's inputs);
   * times the builds in turns, committed first, then the others, then the
     same in reverse order (REPS launches per turn, CUDA events), and prints
     each build's mean of its two turns and its ratio to the committed
     kernel's, beside the card's name and power limit.
 
+It fails when two launches of a build differ, when the committed kernel
+differs from itself or, for kernel B, when any build breaks the tolerance.
 It needs one CUDA device and nvcc, and runs nothing on the CPU.
 """
 from __future__ import annotations
@@ -31,21 +40,102 @@ from pathlib import Path
 import torch
 
 from . import kernels
-from .bench_frame import bench_scene, cuda_ms, pack_frame
-from .ops.rasterize_cuda import TF_RTOL, composite_tiles_plain, tfinal_rel_err
+from .bench_frame import bench_scene, cotangents, cuda_ms, pack_frame
+from .ops.rasterize_cuda import (BWD_ATOL, BWD_RTOL, TF_RTOL, bwd_errors,
+                                 composite_tiles_bwd_plain, composite_tiles_plain,
+                                 tfinal_rel_err)
 
 TILES = ((32, 16), (16, 16))
 REPS = 20
+ENTRIES = ("composite_fwd", "composite_bwd")
 
 
 def _other(spec: str):
-    """NAME=path -> (name, bound composite_fwd, nvcc's output)."""
+    """NAME=path -> (name, entry point, bound C function, nvcc's output)."""
     name, _, path = spec.partition("=")
     src = Path(path).resolve()
     lib_path, text = kernels.build(src, src.parent / "_build")
-    fn = ctypes.CDLL(str(lib_path)).composite_fwd
-    fn.argtypes, fn.restype = kernels._SIGNATURES["composite_fwd"], ctypes.c_int
-    return name, fn, text
+    lib = ctypes.CDLL(str(lib_path))
+    entry = next((e for e in ENTRIES if hasattr(lib, e)), None)
+    if entry is None:
+        raise SystemExit(f"{src} exports none of {ENTRIES}")
+    fn = getattr(lib, entry)
+    fn.argtypes, fn.restype = kernels._SIGNATURES[entry], ctypes.c_int
+    return name, entry, fn, text
+
+
+def _launcher(fn, make_outs, args):
+    """A call of C function fn on fresh outputs make_outs() and `args`."""
+    def run():
+        outs = make_outs()
+        err = fn(*args(outs), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: CUDA error {err}")
+        return outs
+    return run
+
+
+def _fwd_runs(frame, tile, others, dev):
+    """(runs, check): kernel A's builds on the frame at `tile`, and the
+    check of one build's outputs against the plain version (a note, ok)."""
+    data, gid, starts, stops, gx, _ = frame
+    tx, ty = tile
+    T, npix, cap = starts.shape[0], tx * ty, data.shape[1]
+    kw = dict(grid_x=gx, tile_x=tx, tile_y=ty, track_idx=True)
+
+    def make_outs():
+        return (torch.empty((T, npix, 8), device=dev), torch.empty((T, npix, 1), device=dev),
+                torch.empty((T, npix, 1), dtype=torch.int32, device=dev))
+
+    def args(outs):
+        return (data.data_ptr(), gid.data_ptr(), starts.data_ptr(), stops.data_ptr(),
+                *(o.data_ptr() for o in outs), cap, T, gx, tx, ty, 1)
+
+    runs = {"committed": lambda: kernels.composite_fwd(data, gid, starts, stops, **kw)}
+    runs.update({name: _launcher(fn, make_outs, args) for name, fn in others})
+    plain = composite_tiles_plain(data, gid, starts, stops, **kw)
+
+    def check(got):
+        rel, n_latch = tfinal_rel_err(got[1], plain[1])
+        return (f"tfinal relative to plain off the latch {rel:.3g} (TF_RTOL {TF_RTOL:g}; "
+                f"{n_latch} pixels on it)"), True
+
+    return runs, check, ("accum", "tfinal", "bestidx")
+
+
+def _bwd_runs(frame, tile, others, dev):
+    """As _fwd_runs for kernel B, on kernel A's outputs of the frame and
+    seeded cotangents."""
+    data, gid, starts, stops, gx, _ = frame
+    tx, ty = tile
+    T, cap = starts.shape[0], data.shape[1]
+    accum, tfinal, _ = kernels.composite_fwd(data, gid, starts, stops, grid_x=gx, tile_x=tx,
+                                             tile_y=ty, track_idx=False)
+    gacc, acdot, gend = cotangents(accum)
+    bargs = (data, starts, stops, gacc, acdot, gend, tfinal)
+    kw = dict(grid_x=gx, tile_x=tx, tile_y=ty)
+
+    def make_outs():
+        return (torch.zeros((16, cap), device=dev),)
+
+    def args(outs):
+        return (*(t.data_ptr() for t in bargs), outs[0].data_ptr(), cap, T, gx, tx, ty)
+
+    runs = {"committed": lambda: (kernels.composite_bwd(*bargs, **kw),)}
+    runs.update({name: _launcher(fn, make_outs, args) for name, fn in others})
+    plain = composite_tiles_bwd_plain(*bargs, **kw)
+    lo, hi = int(starts[0]), int(stops[-1])
+
+    def check(got):
+        errs = bwd_errors(got[0], plain, lo, hi)
+        worst = max(e[1] for e in errs.values())
+        outside = not (got[0][:, :lo].any() or got[0][:, hi:].any() or got[0][14:].any())
+        note = (f"vs plain worst err/limit {worst:.3g} (BWD_RTOL {BWD_RTOL:g}, BWD_ATOL "
+                f"{BWD_ATOL:g}; " + ", ".join(f"{k} {e[0]:.3g}" for k, e in errs.items())
+                + f"); outside the ranges zero {outside}")
+        return note, worst <= 1.0 and outside
+
+    return runs, check, ("dgrad",)
 
 
 def main(argv=None) -> int:
@@ -60,61 +150,48 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     kernels.load_all()
-    logs = {"committed": kernels.build_logs.get("composite_fwd", "")}
     others = [_other(s) for s in args.other]
-    logs.update({name: text for name, _, text in others})
+    entries = [e for e in ENTRIES if any(o[1] == e for o in others)] or ["composite_fwd"]
+    logs = {f"committed {e}": kernels.build_logs.get(e, "") for e in entries}
+    logs.update({name: text for name, _, _, text in others})
     for name, text in logs.items():
         print("\n".join(f"# {name}: {ln.strip()}" for ln in text.strip().splitlines()))
     scene = bench_scene(dev)
     ok = True
     for tx, ty in TILES:
-        data, gid, starts, stops, gx, _ = pack_frame(scene, tx, ty)
-        T, npix, cap = starts.shape[0], tx * ty, data.shape[1]
-        kw = dict(grid_x=gx, tile_x=tx, tile_y=ty, track_idx=True)
-
-        def committed():
-            return kernels.composite_fwd(data, gid, starts, stops, **kw)
-
-        def runner(fn):
-            def run():
-                outs = (torch.empty((T, npix, 8), device=dev), torch.empty((T, npix, 1), device=dev),
-                        torch.empty((T, npix, 1), dtype=torch.int32, device=dev))
-                err = fn(data.data_ptr(), gid.data_ptr(), starts.data_ptr(), stops.data_ptr(),
-                         *(o.data_ptr() for o in outs), cap, T, gx, tx, ty, 1,
-                         torch.cuda.current_stream(dev).cuda_stream)
-                if err:
-                    raise RuntimeError(f"launch failed: CUDA error {err}")
-                return outs
-            return run
-
-        runs = {"committed": committed}
-        runs.update({name: runner(fn) for name, fn, _ in others})
-        want = committed()
-        plain = composite_tiles_plain(data, gid, starts, stops, **kw)
-        torch.cuda.synchronize()
-        for name, run in runs.items():
-            got, again = run(), run()
-            torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip(got, want))
-            repeat = all(torch.equal(a, b) for a, b in zip(got, again))
-            rel, n_latch = tfinal_rel_err(got[1], plain[1])
-            diffs = ", ".join(f"{k} {(a.float() - b.float()).abs().max().item():.3g}"
-                              for k, a, b in zip(("accum", "tfinal", "bestidx"), got, want))
-            print(f"# {tx}x{ty} {name}: bit-equal to committed {same} ({diffs}); two launches "
-                  f"bit-equal {repeat}; tfinal relative to plain off the latch {rel:.3g} "
-                  f"(TF_RTOL {TF_RTOL:g}; {n_latch} pixels on it)", flush=True)
-            ok = ok and repeat and (same or name != "committed")
-        del plain
-        names = list(runs)
-        times = {n: [] for n in names}
-        for n in names + names[::-1]:
-            times[n].append(cuda_ms(runs[n], REPS))
-        base = sum(times["committed"]) / 2
-        for n in names:
-            t = sum(times[n]) / 2
-            print(f"# {tx}x{ty} {n}: {t:.4f} ms (turns {times[n][0]:.4f}, {times[n][1]:.4f}), "
-                  f"{t / base:.3f} of committed; {T} tiles, {int(stops[-1] - starts[0])} "
-                  f"instances; {card}", flush=True)
+        frame = pack_frame(scene, tx, ty)
+        n_inst = int(frame.stops[-1] - frame.starts[0])
+        for entry in entries:
+            mine = [(name, fn) for name, e, fn, _ in others if e == entry]
+            setup = _fwd_runs if entry == "composite_fwd" else _bwd_runs
+            runs, check, labels = setup(frame, (tx, ty), mine, dev)
+            outs = {}
+            for name, run in runs.items():
+                got, again = run(), run()
+                torch.cuda.synchronize()
+                outs[name] = got
+                repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+                same = all(torch.equal(a, b) for a, b in zip(got, outs["committed"]))
+                twins = [n for n in outs if n not in (name, "committed")
+                         and all(torch.equal(a, b) for a, b in zip(got, outs[n]))]
+                diffs = ", ".join(f"{k} {(a.float() - b.float()).abs().max().item():.3g}"
+                                  for k, a, b in zip(labels, got, outs["committed"]))
+                note, good = check(got)
+                print(f"# {tx}x{ty} {entry} {name}: bit-equal to committed {same} ({diffs}); "
+                      f"bit-equal to {twins or 'no earlier other'}; two launches bit-equal "
+                      f"{repeat}; {note}", flush=True)
+                ok = ok and repeat and good
+            del outs
+            names = list(runs)
+            times = {n: [] for n in names}
+            for n in names + names[::-1]:
+                times[n].append(cuda_ms(runs[n], REPS))
+            base = sum(times["committed"]) / 2
+            for n in names:
+                t = sum(times[n]) / 2
+                print(f"# {tx}x{ty} {entry} {n}: {t:.4f} ms (turns {times[n][0]:.4f}, "
+                      f"{times[n][1]:.4f}), {t / base:.3f} of committed; "
+                      f"{frame.starts.shape[0]} tiles, {n_inst} instances; {card}", flush=True)
     return 0 if ok else 1
 
 

@@ -14,10 +14,14 @@ for CUDA tensors and takes the plain version `composite_tiles_plain` for CPU
 tensors; the accumulator channels of both are (r, g, b, depth, fx, fy, fz,
 one) = data rows 6-13. `composite_tiles_bwd` does the same for the backward
 kernel (csrc/composite_bwd.cu) and `composite_tiles_bwd_plain`.
-`warp_cull_plain` (with `warp_boxes`) is the forward kernel's per-warp cull
+`warp_cull_plain` (with `warp_boxes`) is the kernels' per-warp cull
 (csrc/composite_common.cuh) in PyTorch, for the tests and chip_smoke.py's
 pair counts; `tfinal_rel_err` is the relative tfinal check (TF_RTOL) that
-holds the forward kernel to its plain version behind a small transmittance.
+holds the forward kernel to its plain version behind a small transmittance,
+and `bwd_errors` the element-wise check (BWD_RTOL, BWD_ATOL) that holds the
+backward kernel to its. `composite_tiles_bwd_walk` is the backward kernel's
+twin: its arithmetic and its order of sums, which the kernel equals bit for
+bit.
 
 Gradients: `CompositeTiles` is the custom VJP of the JAX package's
 `composite_tiles` and `PackSorted` that of its pack gather
@@ -202,6 +206,28 @@ def tfinal_rel_err(tf_k, tf_p) -> tuple[float, int]:
     return rel.max().item(), int(on_latch.sum().item())
 
 
+# The backward kernel sums each instance's pixels in another order than its
+# plain version: an element may differ by BWD_RTOL of itself plus BWD_ATOL of
+# its row group's largest magnitude.
+BWD_RTOL, BWD_ATOL = 1e-5, 1e-6
+BWD_ROWS = {"xy": slice(0, 2), "conic": slice(2, 5), "opacity": slice(5, 6),
+            "features": slice(6, 14)}
+
+
+def bwd_errors(got, want, lo: int, hi: int) -> dict[str, tuple[float, float, float]]:
+    """Per row group of BWD_ROWS over the columns [lo, hi): (largest
+    |got - want|, largest |got - want| / (BWD_RTOL |want| + floor), floor =
+    BWD_ATOL max |want| of the group). The middle value is to be held to 1."""
+    out = {}
+    for name, rows in BWD_ROWS.items():
+        ref = want[rows, lo:hi]
+        diff = (got[rows, lo:hi] - ref).abs()
+        floor = BWD_ATOL * ref.abs().max().item()
+        limit = (BWD_RTOL * ref.abs() + floor).clamp_min(1e-30)
+        out[name] = (diff.max().item(), (diff / limit).max().item(), floor)
+    return out
+
+
 def composite_tiles_bwd(data, starts, stops, gacc, acdot, gend, tfinal, *, grid_x: int,
                         tile_x: int = 32, tile_y: int = 16):
     """Per-instance gradient rows dgrad f32 [16, capacity] of the forward
@@ -295,6 +321,75 @@ def composite_tiles_bwd_plain(data, starts, stops, gacc, acdot, gend, tfinal, *,
             dgrad[:14, idx[ok].long()] = vals.t()
             cum_in = cum[..., -1:]
             pref = incl[..., -1:]
+    return dgrad
+
+
+def composite_tiles_bwd_walk(data, starts, stops, gacc, acdot, gend, tfinal, *,
+                             grid_x: int, tile_x: int = 32, tile_y: int = 16,
+                             tile_batch: int = 256):
+    """The backward kernel's twin, same signature and outputs: the plain
+    version's arithmetic walked one instance at a time (each pixel's
+    transmittance and running sum of w c . gc updated per instance, as the
+    kernel does), and each instance's rows summed over the pixels in the
+    kernel's order: within each warp of 32 pixels the pairwise tree over
+    lane bits 16, 8, 4, 2, 1, then the warps' sums added to 0.0 in warp
+    order. Every operation is a correctly rounded float32 operation in the
+    kernel's order, so on the card (the same expf) the kernel's dgrad equals
+    it bit for bit. The tests use it; no path of the port runs it."""
+    dev = data.device
+    T = starts.shape[0]
+    capacity = data.shape[1]
+    npix = tile_x * tile_y
+    rows = data[:14].t()  # [capacity, 14]
+    pixf = tile_pixels(grid_x, T // grid_x, tile_x, tile_y, dev)  # [T, P, 2]
+    dgrad = torch.zeros((DATA_ROWS, capacity), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), device=dev)
+    for b in range(0, T, tile_batch):
+        s = slice(b, b + tile_batch)
+        st, sp = starts[s], stops[s]
+        longest = int((sp - st).max().item()) if st.numel() else 0
+        g = gacc[s].unbind(-1)  # 8 x [B, P]
+        acd = acdot[s][..., 0]
+        tf_term = tfinal[s][..., 0] * gend[s][..., 0]
+        px, py = pixf[s].unbind(-1)
+        t_run = torch.ones_like(acd)
+        incl = torch.zeros_like(acd)
+        done = torch.zeros(acd.shape, dtype=torch.bool, device=dev)
+        for j in range(longest):
+            idx = st + j
+            ok = idx < sp
+            r = rows[idx.clamp(0, capacity - 1).long()][:, None, :]  # [B, 1, 14]
+            x, y, ca, cb, cc, op, cr, cg, cbl = r[..., 0:9].unbind(-1)
+            dx, dy = x - px, y - py
+            power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+            e = torch.exp(torch.clamp_max(power, 0.0))
+            alpha = torch.clamp_max(op * e, comp.ALPHA_MAX)
+            m = ok[:, None] & ~done & (power <= 0.0) & (alpha >= comp.ALPHA_MIN)
+            one_m = 1.0 - alpha
+            t_next = t_run * one_m
+            latch = m & (t_next < comp.T_EPS)
+            applied = m & ~latch
+            done = done | latch
+            w = alpha * t_run
+            cdot = (cr * g[0] + cg * g[1]) + cbl * g[2]
+            incl_next = w * cdot + incl
+            dl_dalpha = t_run * cdot - ((acd - incl_next) + tf_term) / torch.clamp_min(one_m, 0.01)
+            e_term = e * dl_dalpha
+            dlp = op * e_term
+            terms = torch.stack([
+                -(ca * dx + cb * dy) * dlp, -(cc * dy + cb * dx) * dlp,
+                -0.5 * dx * dx * dlp, -dx * dy * dlp, -0.5 * dy * dy * dlp, e_term,
+                *(w * gf for gf in g)], dim=-1)  # [B, P, 14]
+            terms = torch.where(applied[..., None], terms, zero)
+            t_run = torch.where(applied, t_next, t_run)
+            incl = torch.where(applied, incl_next, incl)
+            v = terms.reshape(terms.shape[0], npix // 32, 32, 14)
+            for half in (16, 8, 4, 2, 1):
+                v = v[:, :, :half] + v[:, :, half:2 * half]
+            total = torch.zeros((terms.shape[0], 14), device=dev)
+            for wp in v[:, :, 0].unbind(1):
+                total = total + wp
+            dgrad[:14, idx[ok].long()] = total[ok].t()
     return dgrad
 
 

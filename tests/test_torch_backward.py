@@ -16,11 +16,24 @@
 - The pack gather's VJP against the JAX package's, in both of its modes, and
   at a production-size buffer against a float64 oracle.
 
+- The per-warp cull is conservative for gradients, not only for colours: an
+  instance that `warp_cull_plain` skips in every warp of its tile has an
+  all-zero column in the plain backward, on the cull's near-threshold and
+  near-singular sweep frames (tests/test_torch_cull.py) and on the parity
+  scene.
+- A numpy twin of the backward kernel's transposed warp reduction
+  (csrc/composite_bwd.cu::warp_sum_transposed) leaves each of the 16 values'
+  warp sums in the two lanes the kernel reads it from (2r and 2r + 1).
+
 The CUDA cases at the end need the card (the JAX side is imported inside the
-fixtures, so they also run where there is no JAX):
+fixtures, so they also run where there is no JAX): the kernel against its
+plain version on a scene, on the cull's sweep frames and on the adversarial
+frame of tests/test_torch_composite.py, at 32x16, 16x16, 8x4 and 24x4:
 
     python -m pytest --noconftest -m cuda tests/test_torch_backward.py
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -34,8 +47,9 @@ torch.set_num_threads(2)
 W, H = 96, 64
 CAP = 8192
 TILE_PARAMS = dict(params=[(32, 16), (16, 16)], ids=["32x16", "16x16"])
-ROWS = {"xy": slice(0, 2), "conic": slice(2, 5), "opacity": slice(5, 6),
-        "features": slice(6, 14)}
+ROWS = trc.BWD_ROWS
+CARD_TILES = [(32, 16), (16, 16), (8, 4), (24, 4)]
+CARD_IDS = [f"{x}x{y}" for x, y in CARD_TILES]
 GRAD_ATOL = {"colors": 2e-5, "flow": 2e-5, "opacity": 2e-5, "xy": 3e-5, "conic": 3e-5}
 
 
@@ -78,6 +92,25 @@ def test_plain_backward_matches_pallas_kernel(bwd_case):
         np.testing.assert_allclose(dgrad[rows, lo:hi], want[rows, lo:hi], atol=2e-5, rtol=0,
                                    err_msg=name)
     assert not dgrad[:, :lo].any() and not dgrad[:, hi:].any() and not dgrad[14:].any()
+
+
+def test_walk_twin_matches_pallas_kernel_and_plain(bwd_case):
+    """composite_tiles_bwd_walk, the kernel's twin (its arithmetic and its
+    order of sums), against the TPU kernel at the strict 2e-5 and against
+    the plain version element by element at BWD_RTOL/BWD_ATOL."""
+    it = bwd_case["inputs"]
+    args = (it["data"], it["starts"], it["stops"], it["gacc"], it["acdot"], it["gend"],
+            it["tfinal"])
+    twin = trc.composite_tiles_bwd_walk(*args, grid_x=it["grid_x"], tile_x=bwd_case["tile"][0],
+                                        tile_y=bwd_case["tile"][1])
+    lo, hi = int(it["starts"][0]), int(it["stops"][-1])
+    want = bwd_case["dgrad_j"]
+    for name, rows in ROWS.items():
+        np.testing.assert_allclose(twin.numpy()[rows, lo:hi], want[rows, lo:hi], atol=2e-5,
+                                   rtol=0, err_msg=name)
+    errs = trc.bwd_errors(twin, _plain_bwd(bwd_case), lo, hi)
+    assert all(e[1] <= 1.0 for e in errs.values()), errs
+    assert not twin[:, :lo].any() and not twin[:, hi:].any() and not twin[14:].any()
 
 
 def test_cpu_tensors_take_the_plain_backward(bwd_case):
@@ -265,6 +298,132 @@ def test_pack_vjp_is_deterministic_and_skips_the_tail():
     assert np.array_equal(a, _port_pack_vjp(cols, order, cum, counts, ct_tail))
 
 
+def _one_range_per_tile(data, starts, stops):
+    """A frame whose tiles share one instance range (the cull's sweep
+    frames) with a copy of the range for every tile: the backward writes
+    each instance's column from its one tile."""
+    T, n = starts.shape[0], int(stops[0] - starts[0])
+    assert bool((starts == starts[0]).all()) and bool((stops == stops[0]).all())
+    cols = data[:, int(starts[0]):int(stops[0])].repeat(1, T)
+    first = torch.arange(T, dtype=torch.int32, device=data.device) * n
+    return cols.contiguous(), first, first + n
+
+
+def _numpy_cotangents(T, npix, seed=0):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.normal(size=(T, npix, 8)).astype(np.float32)),
+            torch.from_numpy(rng.normal(size=(T, npix, 1)).astype(np.float32)))
+
+
+def _assert_culled_columns_zero(data, starts, stops, dgrad, grid_x, tile):
+    """Every instance that warp_cull_plain skips in every warp of its tile
+    has an all-zero gradient column; the frame holds such instances and
+    non-zero columns of kept ones."""
+    T = starts.shape[0]
+    boxes = trc.warp_boxes(grid_x, T, *tile, "cpu")
+    culled = kept_nonzero = 0
+    for t in range(T):
+        lo, hi = int(starts[t]), int(stops[t])
+        if hi <= lo:
+            continue
+        rows = data[:6, lo:hi].t()
+        skip = trc.warp_cull_plain(rows[:, 0:2], rows[:, 2:5], rows[:, 5], boxes[t][:, None])
+        everywhere = skip.all(0)  # [n]
+        cols = dgrad[:, lo:hi]
+        assert bool((cols[:, everywhere] == 0).all()), (t, int(everywhere.sum()))
+        culled += int(everywhere.sum())
+        kept_nonzero += int(cols[:, ~everywhere].any(0).sum())
+    assert culled > 0 and kept_nonzero > 0, (culled, kept_nonzero)
+
+
+@pytest.mark.parametrize("tile", CARD_TILES, ids=CARD_IDS)
+@pytest.mark.parametrize("kind", ["threshold", "singular"])
+def test_culled_instances_have_zero_gradients_on_sweep_frames(kind, tile):
+    """The cull's near-threshold and near-singular sweeps (one copy of the
+    sweep per tile), through the plain forward and backward with seeded
+    O(1) cotangents: the cull is conservative for the gradient rows."""
+    from test_torch_cull import _sweep_frame
+
+    data, gid, starts, stops, gx = _sweep_frame(kind, tile)
+    data, starts, stops = _one_range_per_tile(data, starts, stops)
+    gid = torch.arange(data.shape[1], dtype=torch.int32)
+    kw = dict(grid_x=gx, tile_x=tile[0], tile_y=tile[1])
+    accum, tfinal, _ = trc.composite_tiles_plain(data, gid, starts, stops, **kw)
+    gacc, gend = _numpy_cotangents(*accum.shape[:2])
+    acdot = (accum[..., 0:3] * gacc[..., 0:3]).sum(-1, keepdim=True)
+    dgrad = trc.composite_tiles_bwd_plain(data, starts, stops, gacc, acdot, gend, tfinal, **kw)
+    assert bool(torch.isfinite(dgrad).all())
+    _assert_culled_columns_zero(data, starts, stops, dgrad, gx, tile)
+
+
+def test_culled_instances_have_zero_gradients_on_the_parity_scene(bwd_case):
+    it = bwd_case["inputs"]
+    _assert_culled_columns_zero(it["data"], it["starts"], it["stops"], _plain_bwd(bwd_case),
+                                it["grid_x"], bwd_case["tile"])
+
+
+def _transposed_warp_sum(v):
+    """Numpy twin of csrc/composite_bwd.cu::warp_sum_transposed: v float32
+    [32 lanes, 16 values]; returns what each lane's call returns. At the
+    level of lane bit 2h (h = 8, 4, 2, 1) a lane keeps values [h, 2h) if
+    its bit is set, else [0, h), and adds what its partner (lane ^ 2h)
+    sends: the other half of the partner's first 2h; the xor-1 level adds
+    the pair's two sums."""
+    v = v.astype(np.float32).copy()
+    lanes = np.arange(32)
+    for h in (8, 4, 2, 1):
+        upper = ((lanes & (2 * h)) != 0)[:, None]
+        keep = np.where(upper, v[:, h:2 * h], v[:, :h])
+        send = np.where(upper, v[:, :h], v[:, h:2 * h])
+        v[:, :h] = keep + send[lanes ^ (2 * h)]
+    return v[:, 0] + v[lanes ^ 1, 0]
+
+
+def test_transposed_reduction_twin_matches_the_kernel_source():
+    """The twin's levels and lane map are the kernel's: levels 8, 4, 2, 1
+    then xor 1 (16 shuffles), and row r written by the even lane 2r."""
+    src = (kernels.CSRC / "composite_bwd.cu").read_text()
+    body = src[src.index("float warp_sum_transposed"):]
+    body = body[:body.index("\n}\n")]
+    assert re.findall(r"transpose_level<(\d+)>\(v, lane\)", body) == ["8", "4", "2", "1"]
+    assert "v[0] + __shfl_xor_sync(kFull, v[0], 1)" in body
+    assert "v[k] = keep + __shfl_xor_sync(kFull, send, 2 * kHalf)" in src
+    assert "const float keep = upper ? v[k + kHalf] : v[k];" in src
+    assert "const int row = lane >> 1;" in src
+    assert "if (!(lane & 1) && row < kOut) s_part[(warp * kBatch + i) * kPartStride + row] = sum;" \
+        in src
+    assert "constexpr int kVals = 16;" in src and "constexpr int kOut = 14;" in src
+
+
+@pytest.mark.parametrize("kind", ["normal", "integers", "one_lane", "some_lanes"])
+def test_transposed_reduction_leaves_each_sum_in_its_lanes(kind):
+    """Lanes 2r and 2r + 1 hold value r's sum over the 32 lanes, bit-equal
+    to each other; the padding values 14 and 15 (zero) leave lanes 28-31
+    zero. Integer values (any order exact) and a single non-zero lane give
+    the sums exactly; seeded normal values within the rounding of 31 adds."""
+    rng = np.random.default_rng({"normal": 0, "integers": 1, "one_lane": 2, "some_lanes": 3}[kind])
+    v = np.zeros((32, 16), np.float32)
+    if kind == "integers":
+        v[:, :14] = rng.integers(-1000, 1000, (32, 14))
+    else:
+        v[:, :14] = rng.normal(size=(32, 14)) * 10.0 ** rng.uniform(-3, 3, (32, 14))
+    if kind == "one_lane":
+        v[np.arange(32) != 13] = 0.0
+    elif kind == "some_lanes":
+        v[rng.permutation(32)[:24]] = 0.0
+    out = _transposed_warp_sum(v)
+    assert np.array_equal(out[0::2].view(np.int32), out[1::2].view(np.int32))
+    want = v.astype(np.float64).sum(0)
+    got = out[0::2].astype(np.float64)  # value r in lane 2r
+    assert np.all(got[14:] == 0.0)
+    if kind in ("integers", "one_lane"):
+        assert np.array_equal(got, want)
+    else:
+        bound = 32 * np.finfo(np.float32).eps * np.abs(v).astype(np.float64).sum(0)
+        assert np.all(np.abs(got - want) <= bound)
+        assert not np.array_equal(got[:14], np.zeros(14))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -272,55 +431,77 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("tile", [(32, 16), (16, 16)], ids=["32x16", "16x16"])
-def test_backward_kernel_matches_plain_on_card(cuda_device, tile):
-    """csrc/composite_bwd.cu against composite_tiles_bwd_plain on the same
-    inputs and O(1) cotangents, on the card: element by element
-    |kernel - plain| within 1e-5 |plain| + 1e-6 max |plain| of its row group
-    (the kernel sums the pixels in another order), zero outside every range,
-    and two launches bit-equal (no atomics)."""
-    from ex4dgs_tpu_torch.kernel_config import KernelConfig
-    from ex4dgs_tpu_torch.models.temporal import point_data_at_t
-    from ex4dgs_tpu_torch.ops.binning import bin_gaussians
-    from ex4dgs_tpu_torch.ops.projection import tile_grid
-    from ex4dgs_tpu_torch.rendering import preprocess_points
-    from ex4dgs_tpu_torch.synthetic import make_scene, ring_cameras
+def _hold_kernel_to_plain(data, gid, starts, stops, gx, tile, *, tolerance=True):
+    """csrc/composite_bwd.cu on the frame, kernel A's accum and tfinal of it
+    and seeded O(1) cotangents, on the card: bit-equal to its twin
+    composite_tiles_bwd_walk (the same arithmetic and order of sums, so a
+    pair the cull drops or a sum the reduction misroutes changes bits), two
+    launches bit-equal (no atomics), zero outside every range and, with
+    `tolerance`, element by element within BWD_RTOL of the plain version
+    plus BWD_ATOL of its row group's largest (the kernel sums the pixels in
+    another order)."""
+    from ex4dgs_tpu_torch.bench_frame import cotangents
 
-    dev = cuda_device
-    kcfg = KernelConfig(tile_x=tile[0], tile_y=tile[1])
-    model, cfg = make_scene(n_static=4000, n_dynamic=400, seed=3, device=dev)
-    cam = ring_cameras(1, 3.0, 200, 120, far=cfg.far, device=dev)[0]
-    pts = point_data_at_t(model, cfg, 2.5)
-    proj, colors = preprocess_points(pts, cam, cfg, near=cfg.near, far=cfg.far,
-                                     kernel_cfg=kcfg)
-    gx, gy = tile_grid(cam.width, cam.height, *tile)
-    binning = bin_gaussians(proj, gx, gy, 1 << 17)
-    assert int(binning.total) <= 1 << 17
-    flow = torch.zeros((proj.xy.shape[0], 3), device=dev)
-    data, gid = trc.pack_sorted(proj, colors, flow, binning)
-    data = data.detach()
-    starts, stops = binning.tile_start, binning.tile_stop
-    accum, tfinal, _ = trc.composite_tiles_fwd(data, gid, starts, stops, grid_x=gx,
-                                               tile_x=tile[0], tile_y=tile[1], track_idx=False)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    gacc = torch.randn(accum.shape, device=dev, generator=gen)
-    gend = torch.randn(tfinal.shape, device=dev, generator=gen)
-    acdot = (accum[..., 0:3] * gacc[..., 0:3]).sum(-1, keepdim=True)
-    args = (data, starts, stops, gacc, acdot, gend, tfinal)
     kw = dict(grid_x=gx, tile_x=tile[0], tile_y=tile[1])
+    accum, tfinal, _ = trc.composite_tiles_fwd(data, gid, starts, stops, track_idx=False, **kw)
+    gacc, acdot, gend = cotangents(accum)
+    args = (data, starts, stops, gacc, acdot, gend, tfinal)
     before = kernels.launches["composite_bwd"]
     got = trc.composite_tiles_bwd(*args, **kw)
     again = trc.composite_tiles_bwd(*args, **kw)
     torch.cuda.synchronize()
     assert kernels.launches["composite_bwd"] == before + 2
     assert torch.equal(got, again)
-    want = trc.composite_tiles_bwd_plain(*args, **kw)
     lo, hi = int(starts[0]), int(stops[-1])
     assert bool(torch.isfinite(got).all())
-    for name, rows in ROWS.items():
-        w = want[rows, lo:hi].abs()
-        limit = 1e-5 * w + 1e-6 * w.max()
-        err = (got[rows, lo:hi] - want[rows, lo:hi]).abs()
-        assert bool((err <= limit).all()), (name, (err / limit.clamp_min(1e-30)).max().item())
     assert not got[:, :lo].any() and not got[:, hi:].any() and not got[14:].any()
+    twin = trc.composite_tiles_bwd_walk(*args, **kw)
+    diff = (got - twin).abs()
+    assert torch.equal(got, twin), (diff.max().item(), int((diff > 0).sum()))
+    want = trc.composite_tiles_bwd_plain(*args, **kw)
+    assert bool(want[:14, lo:hi].any())  # a non-trivial gradient
+    if tolerance:
+        errs = trc.bwd_errors(got, want, lo, hi)
+        assert all(e[1] <= 1.0 for e in errs.values()), errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", CARD_TILES, ids=CARD_IDS)
+def test_backward_kernel_matches_plain_on_card(cuda_device, tile):
+    """On a small make_scene frame at t = 2.5 (_hold_kernel_to_plain); at
+    8x4 and 24x4 a warp's pixels span rows (24x4: a warp wraps)."""
+    from test_torch_composite import _scene_frame
+
+    _hold_kernel_to_plain(*_scene_frame(tile, cuda_device), tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", CARD_TILES, ids=CARD_IDS)
+@pytest.mark.parametrize("kind", ["threshold", "singular"])
+def test_backward_kernel_on_sweep_frames_on_card(cuda_device, kind, tile):
+    """The kernel's own cull and reduction on the cull's near-threshold and
+    near-singular sweeps (one copy per tile), where a dropped near-floor
+    pair would change its column's bits. On the near-singular sweep the
+    plain version differs from itself walked one instance at a time
+    (chunk=1) by more than BWD_RTOL/BWD_ATOL (the gradients of splats with
+    b^2 -> ac cancel in every order of float32 sums), so there the kernel
+    is held to its twin alone."""
+    from test_torch_cull import _sweep_frame
+
+    data, _, starts, stops, gx = _sweep_frame(kind, tile, "cuda")
+    data, starts, stops = _one_range_per_tile(data, starts, stops)
+    gid = torch.arange(data.shape[1], dtype=torch.int32, device=data.device)
+    _hold_kernel_to_plain(data, gid, starts, stops, gx, tile, tolerance=kind == "threshold")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", CARD_TILES, ids=CARD_IDS)
+def test_backward_kernel_on_adversarial_frame_on_card(cuda_device, tile):
+    """The adversarial frame of tests/test_torch_composite.py: splats across
+    warp rows, thin ellipses and opacities on the alpha floor, and an empty
+    tile. As on the near-singular sweep, the plain version differs from
+    itself walked one instance at a time by more than BWD_RTOL/BWD_ATOL
+    here, so the kernel is held to its twin alone."""
+    from test_torch_composite import _adversarial_frame
+
+    _hold_kernel_to_plain(*_adversarial_frame(tile, cuda_device), tile, tolerance=False)
