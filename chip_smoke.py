@@ -73,6 +73,22 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    P2a and P2b are then timed in turns against the fill_ calls that write
    the same outputs (kernel, fills, fills, kernel), and each ratio is set
    beside the spread of its turns.
+11. subpixel path: the frame of phase 3 with the bench frame's seeded
+   subpixel offsets (bench_frame.bench_offsets, U(-0.5, 0.5) per pixel and
+   coordinate) goes through kernel A with offsets, held to its plain
+   version as in phase 3 (and it must differ from the frame without
+   offsets), and kernel B with offsets, bit-equal to its twin and within
+   BWD_RTOL/BWD_ATOL of its plain version as in phase 5; two launches of
+   each bit-equal. A and B are timed with and without offsets in turns
+   (without, with, with, without), the frame's lane-pairs are counted with
+   the offset pixels and the offset-aware cull's twin (which must drop no
+   contributing pair), and the bounds come from the offset frame's
+   contributing pairs. Then the subpixel main path, with the counters set
+   to 0 just before and read just after: rendering.render(...,
+   subpixel_offset=off) at t = 0, 1 and 2.5 (one launch of kernel A each)
+   and one loss.backward() through a render at t = 1 (one launch of A and
+   one of B, finite gradients). Last, phase 9's small scene rendered and
+   differentiated with offsets on the card and on the CPU must agree.
 
 The lines before the last are the card's name and power limit (as
 nvidia-smi prints them) and a JSON object with one entry per kernel; the
@@ -204,8 +220,9 @@ def report_profile(what: str, fn, card: str) -> None:
 
 
 def walked_pairs(data, starts, stops, grid_x, tile_x, tile_y, chunk=64, tile_batch=256,
-                 kernel_batch=256):
-    """Instance x pixel pair counts of one frame, with per-pixel early exit:
+                 kernel_batch=256, offsets=None):
+    """Instance x pixel pair counts of one frame (its pixels moved by the
+    per-tile subpixel `offsets` when given), with per-pixel early exit:
     a pair is evaluated when its pixel has not latched before it
     (transmittance still >= T_EPS), contributing when it also passes the
     power and alpha tests, applied when the pixel does not latch on it.
@@ -230,7 +247,9 @@ def walked_pairs(data, starts, stops, grid_x, tile_x, tile_y, chunk=64, tile_bat
     T = starts.shape[0]
     nw = tile_x * tile_y // 32
     pixf = tile_pixels(grid_x, T // grid_x, tile_x, tile_y, dev)
-    boxes = warp_boxes(grid_x, T, tile_x, tile_y, dev)
+    if offsets is not None:
+        pixf = pixf + offsets
+    boxes = warp_boxes(grid_x, T, tile_x, tile_y, dev, offsets=offsets)
     lanes = torch.arange(chunk, device=dev)[None, :]
     n = dict.fromkeys(("evaluated", "contributing", "applied", "warp_walked",
                        "warp_walked_culled", "slowest_warp", "dropped", "steps_applied",
@@ -462,6 +481,262 @@ def probe_phase(dev, starts, stops, card: str) -> list[dict]:
     return entries
 
 
+def fwd_agreement(got, again, want, far: float) -> tuple[str, bool, float]:
+    """Kernel A's outputs `got` (and a second launch `again`) against its
+    plain version's `want`, as phase 3 holds them: (the log's note, whether
+    every check passed, the largest accum or tfinal difference)."""
+    from ex4dgs_tpu_torch.ops.rasterize_cuda import TF_RTOL, tfinal_rel_err
+
+    (acc_k, tf_k, idx_k), (acc_p, tf_p, idx_p) = got, want
+
+    def depth_of(a):
+        has = a[..., 7] > 0
+        return torch.where(has, a[..., 3] / torch.where(has, a[..., 7], 1.0), far)
+
+    err_acc = (acc_k - acc_p).abs().max().item()
+    err_tf = (tf_k - tf_p).abs().max().item()
+    rel_tf, n_latch = tfinal_rel_err(tf_k, tf_p)
+    err_depth = (depth_of(acc_k) - depth_of(acc_p)).abs().max().item()
+    agree = (idx_k == idx_p).float().mean().item()
+    finite = all(bool(torch.isfinite(x).all()) for x in (acc_k, tf_k))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    note = (f"accum {err_acc:.3g} (atol 2e-5), tfinal {err_tf:.3g} (atol 2e-5; relative "
+            f"{rel_tf:.3g}, rtol {TF_RTOL:g}, {n_latch} pixels on the latch left out), depth "
+            f"{err_depth:.3g} (atol 1e-4), bestidx agreement {agree:.6f} (>= 0.999), finite "
+            f"{finite}; two launches bit-equal {same}")
+    ok = (finite and err_acc <= 2e-5 and err_tf <= 2e-5 and err_depth <= 1e-4
+          and agree >= 0.999 and rel_tf <= TF_RTOL and same)
+    return note, ok, max(err_acc, err_tf)
+
+
+def bwd_agreement(got, again, want, twin, lo: int, hi: int) -> tuple[str, bool, float]:
+    """Kernel B's dgrad `got` (and a second launch `again`) against its
+    plain version's `want` and its twin's, as phase 5 holds it: (the log's
+    note, whether every check passed, the largest difference from plain)."""
+    from ex4dgs_tpu_torch.ops.rasterize_cuda import BWD_ROWS, bwd_errors
+
+    errs = bwd_errors(got, want, lo, hi)
+    median = {}
+    for name, rows in BWD_ROWS.items():
+        mag = want[rows, lo:hi].abs()
+        median[name] = mag[mag > 0].median().item() if bool((mag > 0).any()) else 0.0
+    outside_zero = not (got[:, :lo].any() or got[:, hi:].any() or got[14:].any())
+    bit_equal = torch.equal(got, again)
+    finite = bool(torch.isfinite(got).all())
+    twin_equal = torch.equal(got, twin)
+    note = (", ".join(f"{k} max err {e[0]:.3g}, worst err/limit {e[1]:.3g}, floor {e[2]:.3g}, "
+                      f"median non-zero |plain| {median[k]:.3g}" for k, e in errs.items())
+            + f"; outside the ranges zero {outside_zero}; two launches bit-equal {bit_equal}; "
+            f"finite {finite}; bit-equal to its twin composite_tiles_bwd_walk {twin_equal}")
+    ok = (finite and outside_zero and bit_equal and twin_equal
+          and max(e[1] for e in errs.values()) <= 1.0)
+    return note, ok, max(e[0] for e in errs.values())
+
+
+def in_turns(runs: dict, reps: int = 20) -> dict:
+    """CUDA-event ms per call of each of two callables, timed in turns (a,
+    b, b, a; `reps` calls each turn): {name: (mean, first turn, second
+    turn)}."""
+    from ex4dgs_tpu_torch.bench_frame import cuda_ms
+
+    names = list(runs)
+    times = {n: [] for n in names}
+    for n in names + names[::-1]:
+        times[n].append(cuda_ms(runs[n], reps))
+    return {n: (sum(t) / 2, *t) for n, t in times.items()}
+
+
+def subpixel_phase(dev, scene, bg, pairs_none, card: str) -> dict:
+    """Phase 11: kernels A and B with subpixel offsets on the bench frame,
+    then the subpixel render and backward path. Returns each kernel's
+    subpixel numbers for the kernels line."""
+    from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch.bench_frame import bench_offsets, cotangents, cuda_ms, pack_frame
+    from ex4dgs_tpu_torch.ops.rasterize_cuda import (composite_tiles_bwd_plain,
+                                                     composite_tiles_bwd_walk,
+                                                     composite_tiles_plain, tile_offsets,
+                                                     warp_boxes)
+    from ex4dgs_tpu_torch.rendering import render
+    from ex4dgs_tpu_torch.synthetic import make_scene, ring_cameras
+
+    model, cfg, cam, _, capacity = scene
+    tx, ty = 32, 16
+    data, gid, starts, stops, gx, n_points = pack_frame(scene, tx, ty)
+    T, npix = starts.shape[0], tx * ty
+    off_img = bench_offsets(dev)
+    off = tile_offsets(off_img, gx, T // gx, tx, ty)
+    args = (data, gid, starts, stops)
+    kw = dict(grid_x=gx, tile_x=tx, tile_y=ty, track_idx=True)
+
+    # -- kernel A with offsets against its plain version
+    acc_k, tf_k, idx_k = got = kernels.composite_fwd(*args, **kw, offsets=off)
+    again = kernels.composite_fwd(*args, **kw, offsets=off)
+    want = composite_tiles_plain(*args, **kw, offsets=off)
+    acc_n, tf_n, _ = kernels.composite_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    note, ok, err_a = fwd_agreement(got, again, want, cfg.far)
+    moved = (acc_k - acc_n).abs().max().item()
+    log(f"# subpixel composite_fwd vs plain: {note}; accum moved by the offsets by up to "
+        f"{moved:.3g}")
+    if not (ok and moved > 1e-3):
+        fail("composite_fwd with offsets disagrees with its plain version")
+    if not bool((idx_k >= -1).all()) or int(idx_k.max().item()) >= n_points:
+        fail("composite_fwd with offsets wrote an id outside [-1, P)")
+    del got, again, want
+
+    fwd_t = in_turns({"without": lambda: kernels.composite_fwd(*args, **kw),
+                      "with": lambda: kernels.composite_fwd(*args, **kw, offsets=off)})
+    plain_ms = cuda_ms(lambda: composite_tiles_plain(*args, **kw, offsets=off), reps=2,
+                       warmup=1)
+    pairs = walked_pairs(data, starts, stops, gx, tx, ty, offsets=off)
+    span = {name: (b[..., 1] - b[..., 0]).mean().item() for name, b in (
+        ("x", warp_boxes(gx, T, tx, ty, dev, offsets=off)[..., 0:2]),
+        ("y", warp_boxes(gx, T, tx, ty, dev, offsets=off)[..., 2:4]))}
+    n_inst = int(stops[-1].item() - starts[0].item())
+    off_bytes = T * npix * 2 * 4
+    nbytes = 14 * 4 * n_inst + 4 * n_inst + 2 * 4 * T + T * npix * (8 + 1 + 1) * 4 + off_bytes
+    bound_a, by_a, (t_bytes, t_fp32, t_sfu) = bound_of(
+        nbytes, SLOTS_EVAL * pairs["contributing"] + SLOTS_APPLIED * pairs["applied"],
+        pairs["contributing"])
+    steps = {k: (pairs_none[k] // 32, pairs[k] // 32) for k in ("warp_walked",
+                                                                 "warp_walked_culled")}
+    log(f"# subpixel composite_fwd: {fwd_t['with'][0]:.4f} ms/frame with offsets, "
+        f"{fwd_t['without'][0]:.4f} without, in turns (without {fwd_t['without'][1]:.4f}, "
+        f"with {fwd_t['with'][1]:.4f}, with {fwd_t['with'][2]:.4f}, without "
+        f"{fwd_t['without'][2]:.4f}): with / without {fwd_t['with'][0] / fwd_t['without'][0]:.4f}"
+        f"; plain {plain_ms:.2f} ms; lane-pairs with offsets evaluated {pairs['evaluated']}, "
+        f"contributing {pairs['contributing']}, applied {pairs['applied']} (without: "
+        f"{pairs_none['evaluated']}, {pairs_none['contributing']}, {pairs_none['applied']}); "
+        f"warp steps without the cull {steps['warp_walked'][1]} (without offsets "
+        f"{steps['warp_walked'][0]}), with the offset-aware cull's twin "
+        f"{steps['warp_walked_culled'][1]} (the integer box without offsets "
+        f"{steps['warp_walked_culled'][0]}), {pairs['dropped']} contributing pairs dropped; "
+        f"the cull's warp box spans {span['x']:.3f} x {span['y']:.3f} pixel-widths on "
+        f"average (31 x 0 without offsets); "
+        f"bound {bound_a:.4f} ms (bytes {t_bytes:.4f} with {off_bytes / 1e6:.2f} MB of "
+        f"offsets, fp32 {t_fp32:.4f}, sfu {t_sfu:.4f}); {card}")
+    if pairs["dropped"]:
+        fail(f"the offset-aware cull's twin skips {pairs['dropped']} contributing pairs")
+    if fwd_t["with"][0] < bound_a:
+        fail(f"composite_fwd with offsets read {fwd_t['with'][0]:.4f} ms, below its bound")
+
+    # -- kernel B with offsets against its twin and its plain version
+    gacc, acdot, gend = cotangents(acc_k)
+    bargs = (data, starts, stops, gacc, acdot, gend, tf_k)
+    bkw = dict(grid_x=gx, tile_x=tx, tile_y=ty, offsets=off)
+    d_k = kernels.composite_bwd(*bargs, **bkw)
+    d_k2 = kernels.composite_bwd(*bargs, **bkw)
+    d_p = composite_tiles_bwd_plain(*bargs, **bkw)
+    torch.cuda.synchronize()
+    note, ok, err_b = bwd_agreement(d_k, d_k2, d_p, composite_tiles_bwd_walk(*bargs, **bkw),
+                                    int(starts[0].item()), int(stops[-1].item()))
+    log(f"# subpixel composite_bwd vs plain: {note}")
+    if not ok:
+        fail("composite_bwd with offsets disagrees with its plain version or its twin")
+    del d_k2, d_p
+    gacc_n, acdot_n, gend_n = cotangents(acc_n)
+    nargs = (data, starts, stops, gacc_n, acdot_n, gend_n, tf_n)
+    nkw = dict(grid_x=gx, tile_x=tx, tile_y=ty)
+    bwd_t = in_turns({"without": lambda: kernels.composite_bwd(*nargs, **nkw),
+                      "with": lambda: kernels.composite_bwd(*bargs, **bkw)})
+    plain_b = cuda_ms(lambda: composite_tiles_bwd_plain(*bargs, **bkw), reps=2, warmup=1)
+    nbytes_b = (14 + 16) * 4 * n_inst + 2 * 4 * T + T * npix * (8 + 3) * 4 + off_bytes
+    bound_b, by_b, (tb_bytes, tb_fp32, tb_sfu) = bound_of(
+        nbytes_b, SLOTS_EVAL_B * pairs["contributing"] + SLOTS_APPLIED_B * pairs["applied"],
+        pairs["contributing"] + pairs["applied"])
+    log(f"# subpixel composite_bwd: {bwd_t['with'][0]:.4f} ms/frame with offsets, "
+        f"{bwd_t['without'][0]:.4f} without, in turns (without {bwd_t['without'][1]:.4f}, "
+        f"with {bwd_t['with'][1]:.4f}, with {bwd_t['with'][2]:.4f}, without "
+        f"{bwd_t['without'][2]:.4f}): with / without {bwd_t['with'][0] / bwd_t['without'][0]:.4f}"
+        f"; plain {plain_b:.2f} ms; warp steps with an applied lane {pairs['steps_applied']} "
+        f"(without offsets {pairs_none['steps_applied']}); bound {bound_b:.4f} ms (bytes "
+        f"{tb_bytes:.4f}, fp32 {tb_fp32:.4f}, sfu {tb_sfu:.4f}); {card}")
+    if bwd_t["with"][0] < bound_b:
+        fail(f"composite_bwd with offsets read {bwd_t['with'][0]:.4f} ms, below its bound")
+    del bargs, nargs, gacc, acdot, gend, gacc_n, acdot_n, gend_n, d_k, acc_k, tf_k, idx_k
+    del acc_n, tf_n, data, gid, off
+
+    # -- the subpixel main path: renders, and one backward through a render
+    def frame(t, m=model):
+        return render(cam, m, cfg, t=t, bg=bg, capacity=capacity, subpixel_offset=off_img,
+                      device=dev)
+
+    frame(1.0)  # warm-up
+    torch.cuda.synchronize()
+    render_counts = dict.fromkeys(kernels.launches, 0)
+    for t in (0.0, 1.0, 2.5):
+        kernels.reset_launches()
+        res = frame(t)
+        torch.cuda.synchronize()
+        if kernels.launches != {**render_counts, "composite_fwd": 1}:
+            fail(f"subpixel render t={t} launched {dict(kernels.launches)}, expected one A")
+        render_counts["composite_fwd"] += 1
+        tot = int(res.binning_total.item())
+        outs = (res.render, res.depth, res.opticalflow, res.acc)
+        if tot > capacity or not all(bool(torch.isfinite(o).all()) for o in outs):
+            fail(f"subpixel render t={t}: overflow ({tot} > {capacity}) or non-finite output")
+        if tuple(res.render.shape) != (cam.height, cam.width, 3) or float(res.acc.max()) <= 0:
+            fail(f"subpixel render t={t}: wrong shape or all background")
+        log(f"# subpixel render t={t}: {tot} instances, acc mean {res.acc.mean().item():.4f}")
+    leaves = {k: v.detach().requires_grad_(True) for k, v in model.params.items()}
+    kernels.reset_launches()
+    res = frame(1.0, model.replace(params=leaves))
+    loss = res.render.abs().mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    backward_counts = dict(kernels.launches)
+    grads = {k: v.grad for k, v in leaves.items() if v.grad is not None}
+    finite_g = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    nonzero = sum(int((g != 0).any()) for g in grads.values())
+    log(f"# subpixel main path: 3 renders launched {render_counts}; one loss.backward() "
+        f"through a render launched {backward_counts}; loss {loss.item():.6f}, gradients of "
+        f"{len(grads)} params, {nonzero} non-zero, finite {finite_g}")
+    want = dict.fromkeys(render_counts, 0)
+    if backward_counts != {**want, "composite_fwd": 1, "composite_bwd": 1}:
+        fail(f"the subpixel backward launched {backward_counts}, expected one of A and B")
+    if not (finite_g and nonzero > 0):
+        fail("the subpixel backward gave non-finite or all-zero gradients")
+    del leaves, grads, res, loss
+
+    # -- phase 9's small scene with offsets, card against CPU
+    small, small_g = {}, {}
+    off_small = bench_offsets("cpu")[:96, :160].contiguous()
+    for d in ("cuda", "cpu"):
+        m_s, c_s = make_scene(n_static=3000, n_dynamic=300, duration=10.0, seed=1, device=d)
+        cam_s = ring_cameras(1, 3.0, 160, 96, far=c_s.far, device=d)[0]
+        bg_s = torch.tensor([0.1, 0.2, 0.3]).to(d)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in m_s.params.items()}
+        small[d] = render(cam_s, m_s.replace(params=leaves), c_s, t=2.5, bg=bg_s,
+                          capacity=65536, subpixel_offset=off_small.to(d), device=d)
+        (small[d].render - 0.5).abs().mean().backward()
+        small_g[d] = {k: v.grad.cpu() for k, v in leaves.items() if v.grad is not None}
+    g, c = small["cuda"], small["cpu"]
+    err_small = (g.render.detach().cpu() - c.render.detach()).abs().max().item()
+    err_small_acc = (g.acc.cpu() - c.acc).abs().max().item()
+    agree_s = (g.dominent_idxs.cpu() == c.dominent_idxs).float().mean().item()
+    grad_rel = max((small_g["cuda"][k] - small_g["cpu"][k]).abs().max().item()
+                   / max(small_g["cpu"][k].abs().max().item(), 1e-30)
+                   for k in small_g["cpu"] if small_g["cpu"][k].abs().max().item() > 0)
+    log(f"# small scene 160x96 with offsets, cuda vs cpu: color {err_small:.3g}, acc "
+        f"{err_small_acc:.3g} (atol 1e-4), idx agreement {agree_s:.5f} (>= 0.99), gradients "
+        f"{grad_rel:.3g} of their largest (<= 1e-3)")
+    if not (err_small <= 1e-4 and err_small_acc <= 1e-4 and agree_s >= 0.99
+            and grad_rel <= 1e-3):
+        fail("the card's subpixel render or gradients of the small scene disagree with the CPU's")
+    return {
+        "composite_fwd": {"subpixel_launches": render_counts["composite_fwd"]
+                          + backward_counts["composite_fwd"], "subpixel_ms": fwd_t["with"][0],
+                          "subpixel_ms_without_offsets": fwd_t["without"][0],
+                          "subpixel_plain_ms": plain_ms, "subpixel_bound_ms": bound_a,
+                          "subpixel_bound_by": by_a, "subpixel_max_abs_err": err_a},
+        "composite_bwd": {"subpixel_launches": backward_counts["composite_bwd"],
+                          "subpixel_ms": bwd_t["with"][0],
+                          "subpixel_ms_without_offsets": bwd_t["without"][0],
+                          "subpixel_plain_ms": plain_b, "subpixel_bound_ms": bound_b,
+                          "subpixel_bound_by": by_b, "subpixel_max_abs_err": err_b},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -471,10 +746,10 @@ def main() -> int:
                                               cuda_ms, pack_frame)
     from ex4dgs_tpu_torch.models.config import OptimizationConfig
     from ex4dgs_tpu_torch.models.optimizer import init_state
-    from ex4dgs_tpu_torch.ops.rasterize_cuda import (BWD_ATOL, BWD_ROWS, BWD_RTOL, TF_RTOL,
-                                                     bwd_errors, composite_tiles_bwd_plain,
+    from ex4dgs_tpu_torch.ops.rasterize_cuda import (BWD_ATOL, BWD_RTOL,
+                                                     composite_tiles_bwd_plain,
                                                      composite_tiles_bwd_walk,
-                                                     composite_tiles_plain, tfinal_rel_err)
+                                                     composite_tiles_plain)
     from ex4dgs_tpu_torch.rendering import render
     from ex4dgs_tpu_torch.synthetic import make_scene, ring_cameras
     from ex4dgs_tpu_torch.train.step import StepStatics, train_step
@@ -510,34 +785,17 @@ def main() -> int:
     data, gid, starts, stops, gx, n_points = pack_frame(scene, tx, ty)
     args = (data, gid, starts, stops)
     kw = dict(grid_x=gx, tile_x=tx, tile_y=ty, track_idx=True)
-    acc_k, tf_k, idx_k = kernels.composite_fwd(*args, **kw)
+    acc_k, tf_k, idx_k = got = kernels.composite_fwd(*args, **kw)
     again = kernels.composite_fwd(*args, **kw)
-    acc_p, tf_p, idx_p = composite_tiles_plain(*args, **kw)
+    want = composite_tiles_plain(*args, **kw)
     torch.cuda.synchronize()
-    err_acc = (acc_k - acc_p).abs().max().item()
-    err_tf = (tf_k - tf_p).abs().max().item()
-    rel_tf, n_latch = tfinal_rel_err(tf_k, tf_p)
-    same_fwd = all(torch.equal(a, b) for a, b in zip((acc_k, tf_k, idx_k), again))
-    del again
-
-    def depth_of(a):
-        has = a[..., 7] > 0
-        return torch.where(has, a[..., 3] / torch.where(has, a[..., 7], 1.0), cfg.far)
-
-    err_depth = (depth_of(acc_k) - depth_of(acc_p)).abs().max().item()
-    agree = (idx_k == idx_p).float().mean().item()
-    finite = all(bool(torch.isfinite(x).all()) for x in (acc_k, tf_k))
-    log(f"# composite_fwd vs plain: accum {err_acc:.3g} (atol 2e-5), tfinal {err_tf:.3g} "
-        f"(atol 2e-5; relative {rel_tf:.3g}, rtol {TF_RTOL:g}, {n_latch} pixels on the latch "
-        f"left out), depth {err_depth:.3g} (atol "
-        f"1e-4), bestidx agreement {agree:.6f} (>= 0.999), finite {finite}; two launches "
-        f"bit-equal {same_fwd}")
-    if not (finite and err_acc <= 2e-5 and err_tf <= 2e-5 and err_depth <= 1e-4
-            and agree >= 0.999 and rel_tf <= TF_RTOL and same_fwd):
+    note, ok, err_fwd = fwd_agreement(got, again, want, cfg.far)
+    log(f"# composite_fwd vs plain: {note}")
+    if not ok:
         fail("composite_fwd disagrees with its plain version")
     if not bool((idx_k >= -1).all()) or int(idx_k.max().item()) >= n_points:
         fail("composite_fwd wrote an id outside [-1, P)")
-    del acc_p, tf_p, idx_p
+    del got, again, want
 
     ms = cuda_ms(lambda: kernels.composite_fwd(*args, **kw), reps=20)
     ms_noidx = cuda_ms(lambda: kernels.composite_fwd(*args, **{**kw, "track_idx": False}),
@@ -631,31 +889,16 @@ def main() -> int:
     d_k2 = kernels.composite_bwd(*bargs, **bkw)
     d_p = composite_tiles_bwd_plain(*bargs, **bkw)
     torch.cuda.synchronize()
-    lo, hi = int(starts[0].item()), int(stops[-1].item())
-    errs = bwd_errors(d_k, d_p, lo, hi)
-    median = {}
-    for name, rows in BWD_ROWS.items():
-        mag = d_p[rows, lo:hi].abs()
-        median[name] = mag[mag > 0].median().item() if bool((mag > 0).any()) else 0.0
-    outside_zero = not (d_k[:, :lo].any() or d_k[:, hi:].any() or d_k[14:].any())
-    bit_equal = torch.equal(d_k, d_k2)
-    finite_b = bool(torch.isfinite(d_k).all())
     t0 = time.perf_counter()
-    twin_equal = torch.equal(d_k, composite_tiles_bwd_walk(*bargs, **bkw))
+    twin = composite_tiles_bwd_walk(*bargs, **bkw)
     twin_s = time.perf_counter() - t0
+    note, ok, err_bwd = bwd_agreement(d_k, d_k2, d_p, twin, int(starts[0].item()),
+                                      int(stops[-1].item()))
     log(f"# composite_bwd vs plain, per element |kernel - plain| <= {BWD_RTOL:g} |plain| + "
-        f"{BWD_ATOL:g} max |plain| per row group: "
-        + ", ".join(f"{k} max err {e[0]:.3g}, worst err/limit {e[1]:.3g}, floor "
-                    f"{e[2]:.3g}, median non-zero |plain| {median[k]:.3g}"
-                    for k, e in errs.items())
-        + f"; outside the ranges zero {outside_zero}; two launches bit-equal {bit_equal}; "
-        f"finite {finite_b}; bit-equal to its twin composite_tiles_bwd_walk {twin_equal} "
-        f"(the twin took {twin_s:.1f} s)")
-    if not (finite_b and outside_zero and bit_equal and twin_equal
-            and max(e[1] for e in errs.values()) <= 1.0):
+        f"{BWD_ATOL:g} max |plain| per row group: {note} (the twin took {twin_s:.1f} s)")
+    if not ok:
         fail("composite_bwd disagrees with its plain version or its twin")
-    err_bwd = max(e[0] for e in errs.values())
-    del d_k2, d_p
+    del d_k2, d_p, twin
     ms_b = cuda_ms(lambda: kernels.composite_bwd(*bargs, **bkw), reps=20)
     plain_ms_b = cuda_ms(lambda: composite_tiles_bwd_plain(*bargs, **bkw), reps=2, warmup=1)
     nbytes_b = (14 + 16) * 4 * n_inst + 2 * 4 * T + T * npix * (8 + 3) * 4
@@ -787,6 +1030,7 @@ def main() -> int:
         fail("the card's train step on the small scene disagrees with the CPU's")
 
     probe_entries = probe_phase(dev, starts, stops, card)
+    sub = subpixel_phase(dev, scene, bg, pairs, card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -794,25 +1038,28 @@ def main() -> int:
         "route": "cuda",
         "source": "ex4dgs_tpu_torch/csrc/composite_fwd.cu",
         "replaces": "ex4dgs_tpu/ops/rasterize_pallas.py:439",
-        "launches": render_launches["composite_fwd"] + train_launches["composite_fwd"],
-        "max_abs_err": max(err_acc, err_tf),
+        "launches": (render_launches["composite_fwd"] + train_launches["composite_fwd"]
+                     + sub["composite_fwd"]["subpixel_launches"]),
+        "max_abs_err": err_fwd,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        **sub["composite_fwd"],
     }, {
         "name": "composite_bwd",
         "route": "cuda",
         "source": "ex4dgs_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "ex4dgs_tpu/ops/rasterize_pallas.py:713",
-        "launches": train_launches["composite_bwd"],
+        "launches": train_launches["composite_bwd"] + sub["composite_bwd"]["subpixel_launches"],
         "max_abs_err": err_bwd,
         "ms": ms_b,
         "plain_ms": plain_ms_b,
         "bound_ms": bound_b,
         "bound_by": bound_by_b,
         "library_ms": None,
+        **sub["composite_bwd"],
     }, *probe_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

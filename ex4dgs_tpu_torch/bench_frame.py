@@ -5,7 +5,8 @@ clamped to log(0.02)) at 1352x1014, seen by one ring camera, with its
 instance capacity sized from a probe render at t = 1. `pack_frame` packs the
 instances at t = 1 for the forward kernel at a tile shape: the kernel's
 inputs exactly as the render path builds them. `cotangents` draws the
-backward kernel's seeded O(1) cotangents for the forward's outputs.
+backward kernel's seeded O(1) cotangents for the forward's outputs, and
+`bench_offsets` the frame's seeded subpixel offsets.
 `cuda_ms` times a call with CUDA events. chip_smoke.py and kernel_turns.py both take the frame and the
 timer from here.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import resolve_device
@@ -89,6 +91,15 @@ def cotangents(accum: torch.Tensor, seed: int = 0):
     gend = torch.randn((*accum.shape[:2], 1), device=accum.device, generator=gen)
     acdot = (accum[..., 0:3] * gacc[..., 0:3]).sum(-1, keepdim=True)
     return gacc, acdot, gend
+
+
+def bench_offsets(device=None, seed: int = 11) -> torch.Tensor:
+    """f32 [H, W, 2] subpixel offsets of the bench frame, U(-0.5, 0.5) drawn
+    with numpy from `seed` (as tests/test_pallas.py draws its offsets), on
+    `device` (cuda unless told otherwise). ops.rasterize_cuda.tile_offsets
+    cuts them into a frame's per-tile blocks."""
+    off = np.random.default_rng(seed).uniform(-0.5, 0.5, (H, W, 2)).astype(np.float32)
+    return torch.from_numpy(off).to(resolve_device(device))
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:

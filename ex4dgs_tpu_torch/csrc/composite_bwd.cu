@@ -20,7 +20,9 @@
 // transmittance before it and w_i = alpha_i T_i; the geometry rows follow
 // from power = -0.5 (a dx^2 + c dy^2) - b dx dy with dx, dy = mean - pixel.
 // Instances the tile never reaches (every pixel latched) and columns outside
-// every range keep the zeros the wrapper fills in.
+// every range keep the zeros the wrapper fills in. With the forward's
+// subpixel offsets off[T, P, 2] (null: none), the pixel is its centre plus
+// off[t, p], one rounded add per coordinate, as in the forward.
 //
 // Design: one thread block per tile, one thread per pixel, as the forward.
 // The block stages a batch of 32 instances in shared memory, every pixel
@@ -53,17 +55,18 @@
 // added once into its instance's sums. The bytes moved (14 rows read and 16
 // written per instance, 44 bytes of cotangents per pixel) are far below the
 // memory roofline. What the design does about the work outside that count:
-//  * Per-warp culling, as kernel A (composite_common.cuh::warp_box,
-//    warp_skips, conservative in fp32). After a batch is staged, lane l of
-//    each warp tests instance l against the warp's pixel box, and the warp
-//    walks only the survivors, in ascending (depth) order (a ballot mask,
-//    __ffs); a warp whose 32 pixels have all latched walks nothing. A
-//    skipped instance is one no pixel of the warp would have applied, so T,
-//    the running sum and the latch are unchanged and the warp's sums for it
-//    are zero. Each warp records in s_mask which instances it parked sums
-//    for; the cross-warp sum adds only those, so no slot of an earlier batch
-//    is read and no zero is written. Skipping a +0.0 term of a sum that
-//    starts at +0.0 changes no bit.
+//  * Per-warp culling, as kernel A (composite_common.cuh::warp_box, or
+//    warp_box_of from the offset pixels, and warp_skips, conservative in
+//    fp32; one instantiation per box, kSubpixel). After a batch is staged,
+//    lane l of each warp tests instance l against the warp's pixel box, and
+//    the warp walks only the survivors, in ascending (depth) order (a
+//    ballot mask, __ffs); a warp whose 32 pixels have all latched walks
+//    nothing. A skipped instance is one no pixel of the warp would have
+//    applied, so T, the running sum and the latch are unchanged and the
+//    warp's sums for it are zero. Each warp records in s_mask which
+//    instances it parked sums for; the cross-warp sum adds only those, so
+//    no slot of an earlier batch is read and no zero is written. Skipping a
+//    +0.0 term of a sum that starts at +0.0 changes no bit.
 //  * Vectorised staging (composite_common.cuh::stage_batch, shared with
 //    kernel A): an evaluated pair reads two broadcast 16-byte loads and an
 //    applied pair one more, where scalar rows took 6 and 9 loads.
@@ -138,9 +141,11 @@ __device__ __forceinline__ float warp_sum_transposed(float (&v)[kVals], int lane
   return v[0] + __shfl_xor_sync(kFull, v[0], 1);
 }
 
+template <bool kSubpixel>
 __global__ void __launch_bounds__(1024)
 composite_bwd_kernel(const float* __restrict__ data, const int32_t* __restrict__ starts,
-                     const int32_t* __restrict__ stops, const float* __restrict__ gacc,
+                     const int32_t* __restrict__ stops, const float2* __restrict__ offsets,
+                     const float* __restrict__ gacc,
                      const float* __restrict__ acdot, const float* __restrict__ gend,
                      const float* __restrict__ tfinal, float* __restrict__ dgrad,
                      long long capacity, int grid_x, int tile_x, int tile_y) {
@@ -159,13 +164,21 @@ composite_bwd_kernel(const float* __restrict__ data, const int32_t* __restrict__
   const int warp = p >> 5;
   const int tx0 = (tile % grid_x) * tile_x;
   const int ty0 = (tile / grid_x) * tile_y;
-  const float px = static_cast<float>(tx0 + p % tile_x);
-  const float py = static_cast<float>(ty0 + p / tile_x);
-  const ex4dgs::WarpBox box = ex4dgs::warp_box(p - lane, tile_x, tx0, ty0);
+  const long long o = static_cast<long long>(tile) * npix + p;
+  float px = static_cast<float>(tx0 + p % tile_x);
+  float py = static_cast<float>(ty0 + p / tile_x);
+  ex4dgs::WarpBox box;
+  if constexpr (kSubpixel) {
+    const float2 off = offsets[o];
+    px = __fadd_rn(px, off.x);
+    py = __fadd_rn(py, off.y);
+    box = ex4dgs::warp_box_of(px, py);
+  } else {
+    box = ex4dgs::warp_box(p - lane, tile_x, tx0, ty0);
+  }
   const int start = starts[tile];
   const int stop = stops[tile];
 
-  const long long o = static_cast<long long>(tile) * npix + p;
   const float4* g4 = reinterpret_cast<const float4*>(gacc + o * 8);
   const float4 ga = g4[0];
   const float4 gb = g4[1];
@@ -274,28 +287,42 @@ composite_bwd_kernel(const float* __restrict__ data, const int32_t* __restrict__
   }
 }
 
-}  // namespace
-
-extern "C" int composite_bwd(const void* data, const void* starts, const void* stops,
-                             const void* gacc, const void* acdot, const void* gend,
-                             const void* tfinal, void* dgrad, long long capacity,
-                             int num_tiles, int grid_x, int tile_x, int tile_y,
-                             void* stream) {
+template <bool kSubpixel>
+cudaError_t launch(const void* data, const void* starts, const void* stops,
+                   const void* offsets, const void* gacc, const void* acdot, const void* gend,
+                   const void* tfinal, void* dgrad, long long capacity, int num_tiles,
+                   int grid_x, int tile_x, int tile_y, cudaStream_t stream) {
   const int npix = tile_x * tile_y;
   const int nwarps = npix / 32;
   const size_t smem = sizeof(float4) * ex4dgs::kStageGroups * kBatch +
                       sizeof(float) * nwarps * kBatch * kPartStride +
                       sizeof(unsigned) * nwarps;
-  cudaError_t err = cudaFuncSetAttribute(
-      composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  composite_bwd_kernel<<<num_tiles, npix, smem, static_cast<cudaStream_t>(stream)>>>(
+  cudaError_t err = cudaFuncSetAttribute(composite_bwd_kernel<kSubpixel>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  composite_bwd_kernel<kSubpixel><<<num_tiles, npix, smem, stream>>>(
       static_cast<const float*>(data), static_cast<const int32_t*>(starts),
-      static_cast<const int32_t*>(stops), static_cast<const float*>(gacc),
-      static_cast<const float*>(acdot), static_cast<const float*>(gend),
-      static_cast<const float*>(tfinal), static_cast<float*>(dgrad), capacity, grid_x,
-      tile_x, tile_y);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const int32_t*>(stops), static_cast<const float2*>(offsets),
+      static_cast<const float*>(gacc), static_cast<const float*>(acdot),
+      static_cast<const float*>(gend), static_cast<const float*>(tfinal),
+      static_cast<float*>(dgrad), capacity, grid_x, tile_x, tile_y);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// offsets: the forward's f32 [T, P, 2], or null for pixel centres on the
+// integer grid.
+extern "C" int composite_bwd(const void* data, const void* starts, const void* stops,
+                             const void* offsets, const void* gacc, const void* acdot,
+                             const void* gend, const void* tfinal, void* dgrad,
+                             long long capacity, int num_tiles, int grid_x, int tile_x,
+                             int tile_y, void* stream) {
+  const auto run = offsets ? launch<true> : launch<false>;
+  return static_cast<int>(run(data, starts, stops, offsets, gacc, acdot, gend, tfinal, dgrad,
+                              capacity, num_tiles, grid_x, tile_x, tile_y,
+                              static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* composite_bwd_error_string(int err) {

@@ -7,9 +7,11 @@
 //   store_accum_dense  the per-pixel accumulators of one tile, accum[P, 8],
 //                      restaged through shared memory and stored so that a
 //                      warp's store covers 512 contiguous bytes;
-//   warp_box, warp_skips
+//   warp_box, warp_box_of, warp_skips
 //                      the per-warp cull: whether no pixel of a warp's 32 can
-//                      pass the exact per-pixel test of an instance.
+//                      pass the exact per-pixel test of an instance, for
+//                      pixel centres on the integer grid (warp_box) or moved
+//                      by per-pixel subpixel offsets (warp_box_of).
 //
 // Every source that includes this header is rebuilt when it changes
 // (kernels.py hashes each source together with every csrc/*.cuh).
@@ -113,8 +115,16 @@ __device__ __forceinline__ void store_accum_dense(float4* stage, const float (&a
 //    else the least of the four edges' minima (on an edge Q is a convex
 //    parabola in the free coordinate; its vertex clamped to the edge). The
 //    box's corners are the kernel's own differences x - px, y - py at the
-//    box's extreme pixels; rounding is monotone, so every pixel's rounded
-//    (dx, dy) lies inside it.
+//    box's extreme pixel coordinates; rounding is monotone, so every
+//    pixel's rounded (dx, dy) lies inside it. This holds for any pixel
+//    coordinates the box bounds, so with subpixel offsets the box is built
+//    from the kernel's own rounded coordinates px + off (warp_box_of), and
+//    the proof carries over for offsets of any size. A pixel with a
+//    non-finite coordinate passes no test (dx or dy is then infinite or
+//    NaN, so the power is +-inf or NaN: skipped, or alpha = op * 0), so it
+//    is left out of the box; a warp with no finite pixel gets an inverted
+//    infinite box, for which lim is infinite or NaN: it skips nothing above
+//    the opacity floor.
 //  * A pixel passes only if op * exp(power) >= 1/255 up to expf's 2 ulp and
 //    one rounding, i.e. Q <= 2 ln(255 op) + 6e-7. The kernel's rounded power
 //    and this Q are each within 4u M of the exact quadratic (u = 2^-24,
@@ -148,6 +158,24 @@ __device__ __forceinline__ WarpBox warp_box(int first, int tile_x, int tx0, int 
   }
   return {static_cast<float>(tx0 + c0), static_cast<float>(tx0 + c1),
           static_cast<float>(ty0 + r0), static_cast<float>(ty0 + r1)};
+}
+
+// The bounding box of the pixel coordinates (px, py) of the warp's 32 lanes
+// (each lane passes its own, already rounded: centre + offset), over the
+// lanes whose two coordinates are finite; (inf, -inf, inf, -inf) if there is
+// none. Every lane of the warp must call it (warp shuffles).
+__device__ __forceinline__ WarpBox warp_box_of(float px, float py) {
+  const bool ok = isfinite(px) && isfinite(py);
+  WarpBox b{ok ? px : INFINITY, ok ? px : -INFINITY, ok ? py : INFINITY,
+            ok ? py : -INFINITY};
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) {
+    b.x0 = fminf(b.x0, __shfl_xor_sync(0xffffffffu, b.x0, m));
+    b.x1 = fmaxf(b.x1, __shfl_xor_sync(0xffffffffu, b.x1, m));
+    b.y0 = fminf(b.y0, __shfl_xor_sync(0xffffffffu, b.y0, m));
+    b.y1 = fmaxf(b.y1, __shfl_xor_sync(0xffffffffu, b.y1, m));
+  }
+  return b;
 }
 
 // min over t in [lo, hi] of p t^2 + 2 b t s + q s^2, s fixed, p > 0.

@@ -10,6 +10,10 @@
 //           alpha < 1/255
 //   w     = alpha * T;  T *= 1 - alpha           while T (1 - alpha) >= 1e-4
 //
+// With subpixel offsets off[T, P, 2] (null: none), pixel p of tile t is
+// evaluated at its centre plus off[t, p], one rounded add per coordinate
+// (the JAX kernel's pixel + offset, rasterize_pallas.py:464-467).
+//
 // Outputs per tile t and pixel p (p = y * tile_x + x in tile-local order):
 //   accum[t, p, 0:8]  sum of w * (r, g, b, depth, fx, fy, fz, 1) (data rows 6-13)
 //   tfinal[t, p]      T after the last applied sample (1 if none applied)
@@ -35,7 +39,12 @@
 //    its pixels walk only the survivors of each group of 32, in ascending
 //    order (a ballot mask, __ffs), which is still depth order. A skipped
 //    pair is one the exact test below would have skipped, so the outputs
-//    are those of the kernel without the cull, bit for bit.
+//    are those of the kernel without the cull, bit for bit. Without
+//    offsets the box comes from the tile's geometry (warp_box); with them,
+//    from the warp's own rounded pixel coordinates by warp shuffles once per
+//    tile (warp_box_of). The two paths are two instantiations of the kernel
+//    (kSubpixel), so the path without offsets does none of the offsets'
+//    work.
 //  * Vectorised staging (composite_common.cuh::stage_batch, shared with
 //    kernel B). The batch sits in shared memory as four float4 groups per
 //    instance (x y a b | c op r g | b depth fx fy | fz one - -): an
@@ -67,10 +76,12 @@ using ex4dgs::kTEps;
 constexpr int kBatch = 256;  // instances staged per shared-memory batch
 constexpr unsigned kFull = 0xffffffffu;
 
+template <bool kSubpixel>
 __global__ void __launch_bounds__(1024)
 composite_fwd_kernel(const float* __restrict__ data, const int32_t* __restrict__ gid,
                      const int32_t* __restrict__ starts, const int32_t* __restrict__ stops,
-                     float* __restrict__ accum, float* __restrict__ tfinal,
+                     const float2* __restrict__ offsets, float* __restrict__ accum,
+                     float* __restrict__ tfinal,
                      int32_t* __restrict__ bestidx, long long capacity, int grid_x,
                      int tile_x, int tile_y, int track_idx) {
   // s4[g * kBatch + c]: rows 4g .. 4g + 3 of instance c of the batch; at the
@@ -85,10 +96,19 @@ composite_fwd_kernel(const float* __restrict__ data, const int32_t* __restrict__
   const int tx0 = (tile % grid_x) * tile_x;
   const int ty0 = (tile / grid_x) * tile_y;
   // Pixel centres are exact integers in float; mean - pixel is then one
-  // rounding, the same subtraction the plain version performs.
-  const float px = static_cast<float>(tx0 + p % tile_x);
-  const float py = static_cast<float>(ty0 + p / tile_x);
-  const ex4dgs::WarpBox box = ex4dgs::warp_box(p - lane, tile_x, tx0, ty0);
+  // rounding, the same subtraction the plain version performs. An offset
+  // pixel is the rounded centre + offset, as in the plain version.
+  float px = static_cast<float>(tx0 + p % tile_x);
+  float py = static_cast<float>(ty0 + p / tile_x);
+  ex4dgs::WarpBox box;
+  if constexpr (kSubpixel) {
+    const float2 off = offsets[static_cast<long long>(tile) * npix + p];
+    px = __fadd_rn(px, off.x);
+    py = __fadd_rn(py, off.y);
+    box = ex4dgs::warp_box_of(px, py);
+  } else {
+    box = ex4dgs::warp_box(p - lane, tile_x, tx0, ty0);
+  }
   const int start = starts[tile];
   const int stop = stops[tile];
 
@@ -166,20 +186,33 @@ composite_fwd_kernel(const float* __restrict__ data, const int32_t* __restrict__
   bestidx[o] = track_idx ? best_id : -1;
 }
 
-}  // namespace
-
-extern "C" int composite_fwd(const void* data, const void* gid, const void* starts,
-                             const void* stops, void* accum, void* tfinal, void* bestidx,
-                             long long capacity, int num_tiles, int grid_x, int tile_x,
-                             int tile_y, int track_idx, void* stream) {
+template <bool kSubpixel>
+void launch(const void* data, const void* gid, const void* starts, const void* stops,
+            const void* offsets, void* accum, void* tfinal, void* bestidx, long long capacity,
+            int num_tiles, int grid_x, int tile_x, int tile_y, int track_idx,
+            cudaStream_t stream) {
   const int npix = tile_x * tile_y;
   // The staging buffer: the batch, or the dense store's P float4 pairs.
   const size_t stage = sizeof(float4) * max(ex4dgs::kStageGroups * kBatch, 2 * npix);
-  composite_fwd_kernel<<<num_tiles, npix, stage, static_cast<cudaStream_t>(stream)>>>(
+  composite_fwd_kernel<kSubpixel><<<num_tiles, npix, stage, stream>>>(
       static_cast<const float*>(data), static_cast<const int32_t*>(gid),
       static_cast<const int32_t*>(starts), static_cast<const int32_t*>(stops),
-      static_cast<float*>(accum), static_cast<float*>(tfinal), static_cast<int32_t*>(bestidx),
-      capacity, grid_x, tile_x, tile_y, track_idx);
+      static_cast<const float2*>(offsets), static_cast<float*>(accum),
+      static_cast<float*>(tfinal), static_cast<int32_t*>(bestidx), capacity, grid_x, tile_x,
+      tile_y, track_idx);
+}
+
+}  // namespace
+
+// offsets: f32 [T, P, 2], or null for pixel centres on the integer grid.
+extern "C" int composite_fwd(const void* data, const void* gid, const void* starts,
+                             const void* stops, const void* offsets, void* accum,
+                             void* tfinal, void* bestidx, long long capacity, int num_tiles,
+                             int grid_x, int tile_x, int tile_y, int track_idx,
+                             void* stream) {
+  const auto run = offsets ? launch<true> : launch<false>;
+  run(data, gid, starts, stops, offsets, accum, tfinal, bestidx, capacity, num_tiles, grid_x,
+      tile_x, tile_y, track_idx, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,12 +47,14 @@ _libs: dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # data, gid, starts, stops, accum, tfinal, bestidx, capacity, num_tiles,
-    # grid_x, tile_x, tile_y, track_idx, stream
-    "composite_fwd": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P],
-    # data, starts, stops, gacc, acdot, gend, tfinal, dgrad, capacity, num_tiles,
-    # grid_x, tile_x, tile_y, stream
-    "composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P],
+    # data, gid, starts, stops, offsets, accum, tfinal, bestidx, capacity,
+    # num_tiles, grid_x, tile_x, tile_y, track_idx, stream
+    "composite_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I,
+                      _P],
+    # data, starts, stops, offsets, gacc, acdot, gend, tfinal, dgrad, capacity,
+    # num_tiles, grid_x, tile_x, tile_y, stream
+    "composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I,
+                      _P],
     # src, offsets, out, n, num_windows, stream
     "probe_unaligned": [_P, _P, _P, ctypes.c_longlong, _I, _P],
     "outspec_a": [_P, _P, _P, _I, _P],  # accum, tfinal, bestidx, num_tiles, stream
@@ -65,6 +68,24 @@ _locks = {name: threading.Lock() for name in SOURCES}
 # The probes' fixed shapes (tools/tpu_probes/_tpu_unaligned.py, _tpu_outspec.py).
 PROBE_ROWS, PROBE_WINDOW = 16, 256
 OUTSPEC_PIX = 512
+
+
+_C_TYPES = {"const void*": _P, "void*": _P, "long long": ctypes.c_longlong, "int": _I}
+
+
+def declared_signature(source: str, entry: str) -> list[tuple[str, object]]:
+    """[(parameter name, ctypes type)] of C function `entry` as the
+    `extern "C" int entry(...)` declaration in the text of a csrc source
+    declares it, so that a caller can pass arguments by name to any
+    revision of the source."""
+    m = re.search(r'extern "C" int ' + re.escape(entry) + r"\(([^)]*)\)", source)
+    if m is None:
+        raise ValueError(f'no extern "C" int {entry}(...) in the source')
+    params = []
+    for decl in m.group(1).split(","):
+        ctype, name = re.fullmatch(r"\s*(.*?)\s*(\w+)\s*", decl).groups()
+        params.append((name, _C_TYPES[" ".join(ctype.replace("*", "* ").split()).rstrip()]))
+    return params
 
 
 def reset_launches() -> None:
@@ -159,12 +180,22 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device)
         raise ValueError(f"{name} must be contiguous")
 
 
+def _offsets_ptr(offsets, num_tiles: int, npix: int, dev):
+    """The subpixel offsets' pointer (None: the kernel's null path) after
+    checking them: f32 [T, P, 2], contiguous, on dev."""
+    if offsets is None:
+        return None
+    _check("offsets", offsets, torch.float32, (num_tiles, npix, 2), dev)
+    return offsets.data_ptr()
+
+
 def composite_fwd(data: torch.Tensor, gid: torch.Tensor, starts: torch.Tensor,
                   stops: torch.Tensor, *, grid_x: int, tile_x: int, tile_y: int,
-                  track_idx: bool):
+                  track_idx: bool, offsets: torch.Tensor | None = None):
     """Launch csrc/composite_fwd.cu on CUDA tensors: data f32 [16, capacity],
-    gid i32 [capacity], starts/stops i32 [T]. Returns (accum f32 [T, P, 8],
-    tfinal f32 [T, P, 1], bestidx i32 [T, P, 1]) with P = tile_x * tile_y,
+    gid i32 [capacity], starts/stops i32 [T], and optionally the per-pixel
+    subpixel offsets f32 [T, P, 2]. Returns (accum f32 [T, P, 8], tfinal
+    f32 [T, P, 1], bestidx i32 [T, P, 1]) with P = tile_x * tile_y,
     computed on the current stream. Raises on anything the kernel does not
     take, and when the launch fails."""
     dev = data.device
@@ -175,6 +206,7 @@ def composite_fwd(data: torch.Tensor, gid: torch.Tensor, starts: torch.Tensor,
     _check("gid", gid, torch.int32, (capacity,), dev)
     _check("starts", starts, torch.int32, (num_tiles,), dev)
     _check("stops", stops, torch.int32, (num_tiles,), dev)
+    off = _offsets_ptr(offsets, num_tiles, npix, dev)
     if not (0 < npix <= 1024 and npix % 32 == 0):
         raise ValueError(f"tile {tile_x}x{tile_y}: one thread per pixel needs an area "
                          "that is a multiple of 32 and at most 1024")
@@ -186,19 +218,21 @@ def composite_fwd(data: torch.Tensor, gid: torch.Tensor, starts: torch.Tensor,
     if num_tiles == 0:
         return accum, tfinal, bestidx
     _launch("composite_fwd", "composite_fwd", dev, data.data_ptr(), gid.data_ptr(),
-            starts.data_ptr(), stops.data_ptr(), accum.data_ptr(), tfinal.data_ptr(),
+            starts.data_ptr(), stops.data_ptr(), off, accum.data_ptr(), tfinal.data_ptr(),
             bestidx.data_ptr(), capacity, num_tiles, grid_x, tile_x, tile_y, int(track_idx))
     return accum, tfinal, bestidx
 
 
 def composite_bwd(data: torch.Tensor, starts: torch.Tensor, stops: torch.Tensor,
                   gacc: torch.Tensor, acdot: torch.Tensor, gend: torch.Tensor,
-                  tfinal: torch.Tensor, *, grid_x: int, tile_x: int, tile_y: int):
+                  tfinal: torch.Tensor, *, grid_x: int, tile_x: int, tile_y: int,
+                  offsets: torch.Tensor | None = None):
     """Launch csrc/composite_bwd.cu on CUDA tensors: data f32 [16, capacity],
     starts/stops i32 [T], gacc f32 [T, P, 8], acdot/gend/tfinal f32
-    [T, P, 1]. Returns dgrad f32 [16, capacity] (zero outside every tile's
-    range), computed on the current stream. Raises on anything the kernel
-    does not take, and when the launch fails."""
+    [T, P, 1], and optionally the forward's subpixel offsets f32 [T, P, 2].
+    Returns dgrad f32 [16, capacity] (zero outside every tile's range),
+    computed on the current stream. Raises on anything the kernel does not
+    take, and when the launch fails."""
     dev = data.device
     capacity = data.shape[1] if data.dim() == 2 else -1
     num_tiles = starts.shape[0] if starts.dim() == 1 else -1
@@ -209,6 +243,7 @@ def composite_bwd(data: torch.Tensor, starts: torch.Tensor, stops: torch.Tensor,
     _check("gacc", gacc, torch.float32, (num_tiles, npix, 8), dev)
     for name, t in (("acdot", acdot), ("gend", gend), ("tfinal", tfinal)):
         _check(name, t, torch.float32, (num_tiles, npix, 1), dev)
+    off = _offsets_ptr(offsets, num_tiles, npix, dev)
     if not (0 < npix <= 1024 and npix % 32 == 0):
         raise ValueError(f"tile {tile_x}x{tile_y}: one thread per pixel needs an area "
                          "that is a multiple of 32 and at most 1024")
@@ -220,7 +255,7 @@ def composite_bwd(data: torch.Tensor, starts: torch.Tensor, stops: torch.Tensor,
     if num_tiles == 0:
         return dgrad
     _launch("composite_bwd", "composite_bwd", dev, data.data_ptr(), starts.data_ptr(),
-            stops.data_ptr(), gacc.data_ptr(), acdot.data_ptr(), gend.data_ptr(),
+            stops.data_ptr(), off, gacc.data_ptr(), acdot.data_ptr(), gend.data_ptr(),
             tfinal.data_ptr(), dgrad.data_ptr(), capacity, num_tiles, grid_x, tile_x, tile_y)
     return dgrad
 

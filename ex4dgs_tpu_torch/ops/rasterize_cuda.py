@@ -23,6 +23,13 @@ backward kernel to its. `composite_tiles_bwd_walk` is the backward kernel's
 twin: its arithmetic and its order of sums, which the kernel equals bit for
 bit.
 
+Subpixel offsets: every compositing function takes `offsets=None`, f32
+[T, P, 2] per tile (`tile_offsets` cuts them from an [H, W, 2] image), and
+evaluates pixel p of tile t at its centre plus offsets[t, p]: one rounded
+add, then mean - pixel, in that order in the kernels, the plain versions
+and the twin. They are data: CompositeTiles gives them no gradient (the
+JAX package's custom VJP gives them a zero cotangent).
+
 Gradients: `CompositeTiles` is the custom VJP of the JAX package's
 `composite_tiles` and `PackSorted` that of its pack gather
 (`_gather_rows_t`): the per-instance gradient rows are reduced to
@@ -37,10 +44,18 @@ from .. import kernels
 from . import compositing as comp
 from .binning import Binning
 from .projection import Projected
-from .rasterize_tiled import blend_tiles, tile_pixels
+from .rasterize_tiled import blend_tiles, tile_offsets, tile_pixels
 
 DATA_ROWS = 16
 N_ACC = 8
+
+
+def _pixels(grid_x: int, num_tiles: int, tile_x: int, tile_y: int, device,
+            offsets=None) -> torch.Tensor:
+    """f32 [T, P, 2]: each tile's pixel coordinates, plus the subpixel
+    offsets when given."""
+    pixf = tile_pixels(grid_x, num_tiles // grid_x, tile_x, tile_y, device)
+    return pixf if offsets is None else pixf + offsets
 
 
 class PackSorted(torch.autograd.Function):
@@ -95,23 +110,26 @@ def pack_sorted(proj: Projected, colors, flow, binning: Binning):
 
 
 def composite_tiles_fwd(data, gid, starts, stops, *, grid_x: int, tile_x: int = 32,
-                        tile_y: int = 16, track_idx: bool = True):
+                        tile_y: int = 16, track_idx: bool = True, offsets=None):
     """Composite every tile's instance range [starts[t], stops[t]) of the
-    packed buffer. Returns accum f32 [T, P, 8], tfinal f32 [T, P, 1] and
-    bestidx i32 [T, P, 1] (all -1 unless track_idx), P = tile_x * tile_y.
+    packed buffer, each pixel moved by its subpixel offset when `offsets`
+    (f32 [T, P, 2]) is given. Returns accum f32 [T, P, 8], tfinal f32
+    [T, P, 1] and bestidx i32 [T, P, 1] (all -1 unless track_idx),
+    P = tile_x * tile_y.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
     if data.device.type == "cpu":
         return composite_tiles_plain(data, gid, starts, stops, grid_x=grid_x,
-                                     tile_x=tile_x, tile_y=tile_y, track_idx=track_idx)
+                                     tile_x=tile_x, tile_y=tile_y, track_idx=track_idx,
+                                     offsets=offsets)
     return kernels.composite_fwd(data, gid, starts, stops, grid_x=grid_x, tile_x=tile_x,
-                                 tile_y=tile_y, track_idx=track_idx)
+                                 tile_y=tile_y, track_idx=track_idx, offsets=offsets)
 
 
 def composite_tiles_plain(data, gid, starts, stops, *, grid_x: int, tile_x: int = 32,
-                          tile_y: int = 16, track_idx: bool = True, chunk: int = 64,
-                          tile_batch: int = 1024):
+                          tile_y: int = 16, track_idx: bool = True, offsets=None,
+                          chunk: int = 64, tile_batch: int = 1024):
     """The kernel's plain PyTorch version, same signature and outputs: the
     oracle's chunked blend (ops/rasterize_tiled.py) over the packed rows,
     `tile_batch` tiles at a time to bound the [tiles, pixels, chunk]
@@ -121,7 +139,7 @@ def composite_tiles_plain(data, gid, starts, stops, *, grid_x: int, tile_x: int 
     npix = tile_x * tile_y
     rows = data[:14].t()  # [capacity, 14]
     xy, conic, opac, feats = rows[:, 0:2], rows[:, 2:5], rows[:, 5], rows[:, 6:14]
-    pixf = tile_pixels(grid_x, T // grid_x, tile_x, tile_y, dev)  # [T, P, 2]
+    pixf = _pixels(grid_x, T, tile_x, tile_y, dev, offsets)  # [T, P, 2]
 
     accum = torch.empty((T, npix, N_ACC), dtype=torch.float32, device=dev)
     tfinal = torch.empty((T, npix, 1), dtype=torch.float32, device=dev)
@@ -138,11 +156,26 @@ def composite_tiles_plain(data, gid, starts, stops, *, grid_x: int, tile_x: int 
 
 
 def warp_boxes(grid_x: int, num_tiles: int, tile_x: int, tile_y: int,
-               device) -> torch.Tensor:
-    """f32 [T, P // 32, 4]: the (x0, x1, y0, y1) pixel-centre bounding box
-    of each warp's 32 pixels (pixels 32w .. 32w + 31 of the tile, p = y *
-    tile_x + x), as csrc/composite_common.cuh::warp_box forms it: a warp
-    that spans rows covers every column of the tile."""
+               device, offsets=None) -> torch.Tensor:
+    """f32 [T, P // 32, 4]: the (x0, x1, y0, y1) bounding box of each warp's
+    32 pixels (pixels 32w .. 32w + 31 of the tile, p = y * tile_x + x).
+
+    Without offsets it is formed as csrc/composite_common.cuh::warp_box forms
+    it: pixel centres, and a warp that spans rows covers every column of the
+    tile. With offsets (f32 [T, P, 2]) as warp_box_of forms it: the least
+    and largest rounded coordinate centre + offset over the warp's pixels
+    whose two coordinates are finite (a pixel with a non-finite one passes
+    no instance's test); a warp with no such pixel gets the inverted box
+    (inf, -inf, inf, -inf), which skips no instance that passes the
+    opacity floor."""
+    if offsets is not None:
+        pix = _pixels(grid_x, num_tiles, tile_x, tile_y, device, offsets)
+        pix = pix.reshape(num_tiles, -1, 32, 2)
+        ok = torch.isfinite(pix).all(-1, keepdim=True)
+        inf = torch.tensor(float("inf"), device=device)
+        lo = torch.where(ok, pix, inf).amin(2)
+        hi = torch.where(ok, pix, -inf).amax(2)
+        return torch.stack([lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]], dim=-1)
     first = torch.arange(0, tile_x * tile_y, 32, device=device)
     r0, r1 = first // tile_x, (first + 31) // tile_x
     wraps = r1 != r0
@@ -229,26 +262,28 @@ def bwd_errors(got, want, lo: int, hi: int) -> dict[str, tuple[float, float, flo
 
 
 def composite_tiles_bwd(data, starts, stops, gacc, acdot, gend, tfinal, *, grid_x: int,
-                        tile_x: int = 32, tile_y: int = 16):
+                        tile_x: int = 32, tile_y: int = 16, offsets=None):
     """Per-instance gradient rows dgrad f32 [16, capacity] of the forward
     composite, from the cotangents gacc f32 [T, P, 8] (of accum, with the
     color cotangent folded in), acdot = accum[..., :3] . gacc[..., :3],
     gend = the cotangent of tfinal (color's included), and the forward's
-    tfinal, all [T, P, 1]. Rows: 0-1 dxy, 2-4 dconic, 5 dopacity, 6-13
-    dfeat, 14-15 zero; columns outside every tile's range are zero.
+    tfinal, all [T, P, 1], and the forward's subpixel offsets, if any. Rows:
+    0-1 dxy, 2-4 dconic, 5 dopacity, 6-13 dfeat, 14-15 zero; columns outside
+    every tile's range are zero.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
     if data.device.type == "cpu":
         return composite_tiles_bwd_plain(data, starts, stops, gacc, acdot, gend, tfinal,
-                                         grid_x=grid_x, tile_x=tile_x, tile_y=tile_y)
+                                         grid_x=grid_x, tile_x=tile_x, tile_y=tile_y,
+                                         offsets=offsets)
     return kernels.composite_bwd(data, starts, stops, gacc, acdot, gend, tfinal,
-                                 grid_x=grid_x, tile_x=tile_x, tile_y=tile_y)
+                                 grid_x=grid_x, tile_x=tile_x, tile_y=tile_y, offsets=offsets)
 
 
 def composite_tiles_bwd_plain(data, starts, stops, gacc, acdot, gend, tfinal, *,
                               grid_x: int, tile_x: int = 32, tile_y: int = 16,
-                              chunk: int = 64, tile_batch: int = 256):
+                              offsets=None, chunk: int = 64, tile_batch: int = 256):
     """The backward kernel's plain PyTorch version, same signature and
     outputs: the closed form of the blend's gradient, walked `tile_batch`
     tiles and `chunk` instances at a time like composite_tiles_plain. Per
@@ -265,7 +300,7 @@ def composite_tiles_bwd_plain(data, starts, stops, gacc, acdot, gend, tfinal, *,
     T = starts.shape[0]
     capacity = data.shape[1]
     rows = data[:14].t()  # [capacity, 14]
-    pixf = tile_pixels(grid_x, T // grid_x, tile_x, tile_y, dev)  # [T, P, 2]
+    pixf = _pixels(grid_x, T, tile_x, tile_y, dev, offsets)  # [T, P, 2]
     lanes = torch.arange(chunk, dtype=torch.int32, device=dev)[None, :]
     dgrad = torch.zeros((DATA_ROWS, capacity), dtype=torch.float32, device=dev)
     for b in range(0, T, tile_batch):
@@ -326,7 +361,7 @@ def composite_tiles_bwd_plain(data, starts, stops, gacc, acdot, gend, tfinal, *,
 
 def composite_tiles_bwd_walk(data, starts, stops, gacc, acdot, gend, tfinal, *,
                              grid_x: int, tile_x: int = 32, tile_y: int = 16,
-                             tile_batch: int = 256):
+                             offsets=None, tile_batch: int = 256):
     """The backward kernel's twin, same signature and outputs: the plain
     version's arithmetic walked one instance at a time (each pixel's
     transmittance and running sum of w c . gc updated per instance, as the
@@ -341,7 +376,7 @@ def composite_tiles_bwd_walk(data, starts, stops, gacc, acdot, gend, tfinal, *,
     capacity = data.shape[1]
     npix = tile_x * tile_y
     rows = data[:14].t()  # [capacity, 14]
-    pixf = tile_pixels(grid_x, T // grid_x, tile_x, tile_y, dev)  # [T, P, 2]
+    pixf = _pixels(grid_x, T, tile_x, tile_y, dev, offsets)  # [T, P, 2]
     dgrad = torch.zeros((DATA_ROWS, capacity), dtype=torch.float32, device=dev)
     zero = torch.zeros((), device=dev)
     for b in range(0, T, tile_batch):
@@ -402,22 +437,24 @@ class CompositeTiles(torch.autograd.Function):
     tfinal * bg. Backward: the color cotangent folds into the accum and
     tfinal cotangents and composite_tiles_bwd gives the per-instance rows,
     zero outside [starts[0], stops[-1]) (the tail slots alias real Gaussians
-    through the clipped order, so they must carry nothing)."""
+    through the clipped order, so they must carry nothing). The subpixel
+    offsets (None, or f32 [T, P, 2]) get no gradient."""
 
     @staticmethod
-    def forward(ctx, data, bg, gid, starts, stops, grid_x, tile_x, tile_y, track_idx):
+    def forward(ctx, data, bg, gid, starts, stops, offsets, grid_x, tile_x, tile_y,
+                track_idx):
         accum, tfinal, bestidx = composite_tiles_fwd(
             data, gid, starts, stops, grid_x=grid_x, tile_x=tile_x, tile_y=tile_y,
-            track_idx=track_idx)
+            track_idx=track_idx, offsets=offsets)
         color = accum[..., 0:3] + tfinal * bg
-        ctx.save_for_backward(data, bg, accum, tfinal, starts, stops)
+        ctx.save_for_backward(data, bg, accum, tfinal, starts, stops, offsets)
         ctx.grid = (grid_x, tile_x, tile_y)
         ctx.mark_non_differentiable(bestidx)
         return color, accum, tfinal, bestidx
 
     @staticmethod
     def backward(ctx, g_color, g_accum, g_tfinal, _g_bestidx):
-        data, bg, accum, tfinal, starts, stops = ctx.saved_tensors
+        data, bg, accum, tfinal, starts, stops, offsets = ctx.saved_tensors
         grid_x, tile_x, tile_y = ctx.grid
         gacc = g_accum.clone()
         gacc[..., 0:3] += g_color
@@ -425,24 +462,32 @@ class CompositeTiles(torch.autograd.Function):
         acdot = (accum[..., 0:3] * gacc[..., 0:3]).sum(-1, keepdim=True)
         dgrad = composite_tiles_bwd(data, starts, stops, gacc.contiguous(),
                                     acdot.contiguous(), gend.contiguous(), tfinal,
-                                    grid_x=grid_x, tile_x=tile_x, tile_y=tile_y)
+                                    grid_x=grid_x, tile_x=tile_x, tile_y=tile_y,
+                                    offsets=offsets)
         g_bg = (g_color * tfinal).sum((0, 1)) if ctx.needs_input_grad[1] else None
-        return dgrad, g_bg, None, None, None, None, None, None, None
+        return dgrad, g_bg, None, None, None, None, None, None, None, None
 
 
 def rasterize_tiled_cuda(proj: Projected, colors, flow, binning: Binning, *, width: int,
                          height: int, bg, max_depth: float, tile_x: int = 32,
-                         tile_y: int = 16, track_idx: bool = True) -> comp.RenderOutputs:
+                         tile_y: int = 16, track_idx: bool = True,
+                         subpixel_offset=None) -> comp.RenderOutputs:
     """Drop-in for ops.rasterize_tiled.rasterize_tiled that composites with
     the kernels (plain versions on the CPU), differentiable through
     CompositeTiles and PackSorted. track_idx=False skips the
-    dominant-contributor bookkeeping; `idx` then comes back all -1."""
+    dominant-contributor bookkeeping; `idx` then comes back all -1.
+    subpixel_offset: optional f32 [H, W, 2] on the render's device; pixel
+    (x, y) is evaluated at (x + off[y, x, 0], y + off[y, x, 1]), and the
+    offsets get no gradient."""
     grid_x = (width + tile_x - 1) // tile_x
     grid_y = (height + tile_y - 1) // tile_y
+    offsets = None
+    if subpixel_offset is not None:
+        offsets = tile_offsets(subpixel_offset.detach(), grid_x, grid_y, tile_x, tile_y)
     data, gid = pack_sorted(proj, colors, flow, binning)
     color, accum, tfinal, bestidx = CompositeTiles.apply(
-        data, bg, gid, binning.tile_start, binning.tile_stop, grid_x, tile_x, tile_y,
-        track_idx)
+        data, bg, gid, binning.tile_start, binning.tile_stop, offsets, grid_x, tile_x,
+        tile_y, track_idx)
     acc = accum[..., 7].detach()
     has = acc > 0.0
     denom = torch.where(has, acc, torch.ones_like(acc))

@@ -36,6 +36,18 @@ def tile_pixels(grid_x: int, grid_y: int, tile_x: int, tile_y: int, device) -> t
     return torch.stack([x, y], dim=-1).to(torch.float32)
 
 
+def tile_offsets(off: torch.Tensor, grid_x: int, grid_y: int, tile_x: int,
+                 tile_y: int) -> torch.Tensor:
+    """Per-pixel subpixel offsets, an [H, W, 2] image, as per-tile blocks
+    [num_tiles, tile_y*tile_x, 2] in tile_pixels' order, zero on the pixels
+    past the image's right and bottom edges (the JAX package pads them so)."""
+    height, width = off.shape[:2]
+    off = torch.nn.functional.pad(off, (0, 0, 0, grid_x * tile_x - width,
+                                        0, grid_y * tile_y - height))
+    return (off.reshape(grid_y, tile_y, grid_x, tile_x, 2).permute(0, 2, 1, 3, 4)
+            .reshape(grid_x * grid_y, tile_y * tile_x, 2).contiguous())
+
+
 def blend_tiles(pixf, xy, conic, opac, feats, gid, starts, stops, *,
                 chunk: int) -> comp.BlendCarry:
     """Blend each tile's instance range [starts[t], stops[t]) of the sorted
@@ -63,12 +75,18 @@ def blend_tiles(pixf, xy, conic, opac, feats, gid, starts, stops, *,
 
 def rasterize_tiled(proj: Projected, colors, flow, binning: Binning, *, width: int,
                     height: int, bg, max_depth: float, chunk: int = 128,
-                    tile_x: int = 32, tile_y: int = 16) -> comp.RenderOutputs:
-    """Render [H, W] outputs via the tile decomposition."""
+                    tile_x: int = 32, tile_y: int = 16,
+                    subpixel_offset=None) -> comp.RenderOutputs:
+    """Render [H, W] outputs via the tile decomposition. subpixel_offset:
+    optional f32 [H, W, 2]; pixel (x, y) is then evaluated at
+    (x + off[y, x, 0], y + off[y, x, 1]). The offsets are data: no gradient
+    reaches them."""
     grid_x = (width + tile_x - 1) // tile_x
     grid_y = (height + tile_y - 1) // tile_y
     xy, conic, opac, feats, gid = gather_sorted(proj, colors, flow, binning)
     pixf = tile_pixels(grid_x, grid_y, tile_x, tile_y, xy.device)
+    if subpixel_offset is not None:
+        pixf = pixf + tile_offsets(subpixel_offset.detach(), grid_x, grid_y, tile_x, tile_y)
     carry = blend_tiles(pixf, xy, conic, opac, feats, gid, binning.tile_start,
                         binning.tile_stop, chunk=chunk)
     out = comp.finalize(carry, bg, max_depth)

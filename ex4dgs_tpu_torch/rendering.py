@@ -88,10 +88,12 @@ def render_points(pts: PointData, cam: RenderCamera, cfg: ModelConfig, *, bg,
                   near: float | None = None, far: float | None = None,
                   scaling_modifier: float = 1.0, capacity: int | None = None,
                   mean2d_offset=None, flow_dirs=None, override_color=None,
-                  track_idx: bool = True, kernel_cfg: KernelConfig | None = None,
-                  device=None) -> RenderResult:
+                  subpixel_offset=None, track_idx: bool = True,
+                  kernel_cfg: KernelConfig | None = None, device=None) -> RenderResult:
     """Rasterize pre-assembled per-frame point data on `device` (cuda
-    unless told otherwise; the points and camera must already be there)."""
+    unless told otherwise; the points and camera must already be there).
+    subpixel_offset: optional f32 [H, W, 2] per-pixel anti-aliasing
+    offsets on that device (see composite_projected)."""
     dev = resolve_device(device)
     _on(dev, "the point data", pts.means3d)
     _on(dev, "the camera", cam.view)
@@ -110,7 +112,8 @@ def render_points(pts: PointData, cam: RenderCamera, cfg: ModelConfig, *, bg,
                                      override_color=override_color, kernel_cfg=kcfg)
     return composite_projected(proj, colors, flow_dirs, cam, bg=bg, far=far,
                                capacity=capacity, static_num=pts.static_num,
-                               track_idx=track_idx, kernel_cfg=kcfg)
+                               subpixel_offset=subpixel_offset, track_idx=track_idx,
+                               kernel_cfg=kcfg)
 
 
 def preprocess_points(pts: PointData, cam: RenderCamera, cfg: ModelConfig, *, near: float,
@@ -140,16 +143,26 @@ def preprocess_points(pts: PointData, cam: RenderCamera, cfg: ModelConfig, *, ne
 
 def composite_projected(proj: Projected, colors, flow_dirs, cam: RenderCamera, *, bg,
                         far: float, capacity: int, static_num: int = 0,
-                        track_idx: bool = True,
+                        subpixel_offset=None, track_idx: bool = True,
                         kernel_cfg: KernelConfig | None = None) -> RenderResult:
-    """Binning and tile compositing of already-projected Gaussians."""
+    """Binning and tile compositing of already-projected Gaussians.
+    subpixel_offset: optional f32 [H, W, 2] on the render's device; pixel
+    (x, y) is evaluated at (x + off[y, x, 0], y + off[y, x, 1]). The offsets
+    are data: no gradient reaches them."""
     kcfg = kernel_cfg or KernelConfig()
+    if subpixel_offset is not None:
+        _on(proj.xy.device, "subpixel_offset", subpixel_offset)
+        shape = (cam.height, cam.width, 2)
+        if tuple(subpixel_offset.shape) != shape or subpixel_offset.dtype != torch.float32:
+            raise ValueError(f"subpixel_offset: {subpixel_offset.dtype} "
+                             f"{tuple(subpixel_offset.shape)}, expected float32 {shape}")
     grid_x, grid_y = tile_grid(cam.width, cam.height, kcfg.tile_x, kcfg.tile_y)
     binning = binning_ops.bin_gaussians(proj, grid_x, grid_y, capacity,
                                         exact_depth_sort=kcfg.exact_sort)
     out = rasterize_tiled_cuda(proj, colors, flow_dirs, binning, width=cam.width,
                                height=cam.height, bg=bg, max_depth=far, tile_x=kcfg.tile_x,
-                               tile_y=kcfg.tile_y, track_idx=track_idx)
+                               tile_y=kcfg.tile_y, track_idx=track_idx,
+                               subpixel_offset=subpixel_offset)
     return RenderResult(
         render=out.color,
         depth=out.depth,

@@ -35,12 +35,35 @@ N = 1500  # instances per sweep
 ONE_255 = np.float32(1.0 / 255.0)
 
 
-def _grid(tile):
+def _grid(tile, offsets=None):
+    """(pixel coordinates [T, P, 2], warp boxes [T, W, 4], width, height) of
+    the sweep's grid, the pixels moved by per-tile subpixel offsets
+    [T, P, 2] when given."""
     gx, gy = GRID
     tx, ty = tile
     pixf = tile_pixels(gx, gy, tx, ty, "cpu")  # [T, P, 2]
-    boxes = trc.warp_boxes(gx, gx * gy, tx, ty, "cpu")  # [T, W, 4]
+    boxes = trc.warp_boxes(gx, gx * gy, tx, ty, "cpu", offsets=offsets)  # [T, W, 4]
+    if offsets is not None:
+        pixf = pixf + offsets
     return pixf, boxes, gx * tx, gy * ty
+
+
+def grid_offsets(tile, scale, seed=0):
+    """Seeded per-tile subpixel offsets f32 [T, P, 2] of the sweep's grid,
+    U(-scale, scale); scale "nonfinite" draws U(-0.5, 0.5) and then puts
+    NaN, inf or -inf into a coordinate of some pixels and NaN into every
+    pixel of one warp (tile 1's warp 0)."""
+    gx, gy = GRID
+    rng = np.random.default_rng(seed)
+    shape = (gx * gy, tile[0] * tile[1], 2)
+    if scale != "nonfinite":
+        return torch.from_numpy(rng.uniform(-scale, scale, shape).astype(np.float32))
+    off = rng.uniform(-0.5, 0.5, shape).astype(np.float32)
+    flat = off.reshape(-1, 2)
+    bad = rng.choice(flat.shape[0], flat.shape[0] // 20, replace=False)
+    flat[bad, rng.integers(0, 2, len(bad))] = rng.choice([np.nan, np.inf, -np.inf], len(bad))
+    off[1, 0:32] = np.nan
+    return torch.from_numpy(off)
 
 
 def _conics(rng, n, anisotropy=(0.0, 2.0), size=(0.3, 30.0)):
@@ -71,10 +94,14 @@ def _on_the_floor(rng, conic, xy, pixf):
     return np.exp(np.minimum(0.5 * qpix, 80.0)) / 255.0 * (1.0 + eps)
 
 
-def _sweep(kind, tile, seed=0):
-    """(xy [N, 2], conic [N, 3], opacity [N]) float32 arrays of one sweep."""
+def _sweep(kind, tile, seed=0, offsets=None):
+    """(xy [N, 2], conic [N, 3], opacity [N]) float32 arrays of one sweep,
+    on the grid's pixels moved by `offsets` when given (their non-finite
+    entries read as 0 here)."""
     rng = np.random.default_rng(seed)
-    pixf, boxes, w, h = _grid(tile)
+    if offsets is not None:
+        offsets = torch.nan_to_num(offsets, nan=0.0, posinf=0.0, neginf=0.0)
+    pixf, boxes, w, h = _grid(tile, offsets)
     n = N
     if kind == "random":
         xy = rng.uniform([-40, -40], [w + 40, h + 40], (n, 2))
@@ -136,10 +163,10 @@ def _sweep(kind, tile, seed=0):
             np.asarray(op).astype(np.float32))
 
 
-def _skips_and_contributions(xy, conic, op, tile):
+def _skips_and_contributions(xy, conic, op, tile, offsets=None):
     """(skip, contributes), both bool [T, W, N]: the twin's cull, and
     whether some pixel of the warp passes chunk_alpha's exact test."""
-    pixf, boxes, _, _ = _grid(tile)
+    pixf, boxes, _, _ = _grid(tile, offsets)
     xy_t, conic_t, op_t = (torch.from_numpy(a) for a in (xy, conic, op))
     skip = trc.warp_cull_plain(xy_t, conic_t, op_t, boxes[:, :, None, :])
     ok = torch.ones((1, 1, len(op)), dtype=torch.bool)
@@ -163,14 +190,17 @@ def test_warp_cull_is_conservative(kind, tile):
         assert bool((~skip & ~contributes).any())
 
 
-def _sweep_frame(kind, tile, device="cpu"):
+def _sweep_frame(kind, tile, device="cpu", offsets=None):
     """The sweep packed as a frame for the forward kernel: (data [16, N],
     gid, starts, stops, grid_x), every tile's range holding all N
     instances. They are ordered by their largest alpha on the grid
-    (float64), smallest first, so that the near-floor pairs come before any
-    pixel latches; colours, depth and flow come from a seed."""
-    xy, conic, op = _sweep(kind, tile)
-    pixf, boxes, _, _ = _grid(tile)
+    (float64; with `offsets`, on the moved pixels), smallest first, so that
+    the near-floor pairs come before any pixel latches; colours, depth and
+    flow come from a seed."""
+    xy, conic, op = _sweep(kind, tile, offsets=offsets)
+    if offsets is not None:
+        offsets = torch.nan_to_num(offsets, nan=0.0, posinf=0.0, neginf=0.0)
+    pixf, boxes, _, _ = _grid(tile, offsets)
     d = xy[:, None, :].astype(np.float64) - pixf.reshape(-1, 2).numpy()[None]
     best = op * np.exp(-0.5 * _q(conic.astype(np.float64)[:, None, :], d).min(1))
     order = np.argsort(best, kind="stable")
@@ -223,19 +253,14 @@ def test_tfinal_rel_err_leaves_out_the_latch():
     assert on_latch == 1 and abs(rel - 5e-4) < 1e-6
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("tile", TILES, ids=[f"{x}x{y}" for x, y in TILES])
-@pytest.mark.parametrize("kind", FRAME_KINDS)
-def test_kernel_keeps_the_sweeps_pairs_on_card(kind, tile):
-    """The kernel's own predicate (composite_common.cuh::warp_skips) on the
-    sweeps that hold its twin conservative: the sweep's frame through
-    csrc/composite_fwd.cu agrees with composite_tiles_plain, accum and
-    tfinal within 2e-5 and tfinal within TF_RTOL of itself off the latch,
-    which a dropped contributing pair would break."""
+def _hold_kernel_a_on_sweep(kind, tile, offsets=None):
+    """The sweep's frame (its pixels moved by `offsets`, if given) through
+    csrc/composite_fwd.cu on the card against composite_tiles_plain."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the card")
-    data, gid, starts, stops, gx = _sweep_frame(kind, tile, "cuda")
-    kw = dict(grid_x=gx, tile_x=tile[0], tile_y=tile[1])
+    data, gid, starts, stops, gx = _sweep_frame(kind, tile, "cuda", offsets=offsets)
+    kw = dict(grid_x=gx, tile_x=tile[0], tile_y=tile[1],
+              offsets=None if offsets is None else offsets.cuda())
     before = kernels.launches["composite_fwd"]
     got = trc.composite_tiles_fwd(data, gid, starts, stops, **kw)
     want = trc.composite_tiles_plain(data, gid, starts, stops, **kw)
@@ -245,6 +270,34 @@ def test_kernel_keeps_the_sweeps_pairs_on_card(kind, tile):
         assert bool(torch.isfinite(a).all()) and (a - w).abs().max().item() <= 2e-5
     rel, _ = trc.tfinal_rel_err(got[1], want[1])
     assert rel <= trc.TF_RTOL, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", TILES, ids=[f"{x}x{y}" for x, y in TILES])
+@pytest.mark.parametrize("kind", FRAME_KINDS)
+def test_kernel_keeps_the_sweeps_pairs_on_card(kind, tile):
+    """The kernel's own predicate (composite_common.cuh::warp_skips) on the
+    sweeps that hold its twin conservative: the sweep's frame through
+    csrc/composite_fwd.cu agrees with composite_tiles_plain, accum and
+    tfinal within 2e-5 and tfinal within TF_RTOL of itself off the latch,
+    which a dropped contributing pair would break."""
+    _hold_kernel_a_on_sweep(kind, tile)
+
+
+OFFSET_SCALES = [0.5, 1.0, 3.0, "nonfinite"]
+OFFSET_IDS = ["0.5px", "1px", "3px", "nonfinite"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", OFFSET_SCALES, ids=OFFSET_IDS)
+@pytest.mark.parametrize("tile", TILES, ids=[f"{x}x{y}" for x, y in TILES])
+@pytest.mark.parametrize("kind", FRAME_KINDS)
+def test_kernel_keeps_the_sweeps_pairs_with_offsets_on_card(kind, tile, scale):
+    """As above with subpixel offsets (grid_offsets; `nonfinite` puts NaN
+    and inf into some pixels and NaN into a whole warp): the kernel's
+    offset-aware box (composite_common.cuh::warp_box_of) on the sweeps
+    built around the moved pixels."""
+    _hold_kernel_a_on_sweep(kind, tile, grid_offsets(tile, scale))
 
 
 @pytest.mark.parametrize("tile", TILES, ids=[f"{x}x{y}" for x, y in TILES])

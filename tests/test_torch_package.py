@@ -284,3 +284,71 @@ def test_launch_counter_reset():
     # one counter per C function, each exported by one source
     entries = [fn for fns in kernels.SOURCES.values() for fn in fns]
     assert sorted(entries) == sorted(kernels.launches) == sorted(kernels._SIGNATURES)
+
+
+# The C entry points of kernels A and B as the sources of the previous
+# revision declared them, before the subpixel `offsets` parameter.
+_OLDER_DECLARATIONS = {
+    "composite_fwd": '''extern "C" int composite_fwd(const void* data, const void* gid, const void* starts,
+                             const void* stops, void* accum, void* tfinal, void* bestidx,
+                             long long capacity, int num_tiles, int grid_x, int tile_x,
+                             int tile_y, int track_idx, void* stream) {''',
+    "composite_bwd": '''extern "C" int composite_bwd(const void* data, const void* starts, const void* stops,
+                             const void* gacc, const void* acdot, const void* gend,
+                             const void* tfinal, void* dgrad, long long capacity,
+                             int num_tiles, int grid_x, int tile_x, int tile_y,
+                             void* stream) {''',
+}
+
+
+def test_declared_signatures_are_the_wrappers():
+    """Every C entry point's declaration in its source gives the ctypes
+    signature kernels.py binds it with."""
+    for source, entries in kernels.SOURCES.items():
+        text = (kernels.CSRC / f"{source}.cu").read_text()
+        for entry in entries:
+            params = kernels.declared_signature(text, entry)
+            assert [t for _, t in params] == kernels._SIGNATURES[entry], entry
+            assert params[-1][0] == "stream"
+
+
+@pytest.mark.parametrize("entry", ["composite_fwd", "composite_bwd"])
+def test_kernel_turns_calls_an_older_source_by_its_own_signature(entry):
+    """kernel_turns binds an `--other` source by the declaration in its text
+    and passes arguments by name, so a revision from before the offsets
+    parameter gets its own 14 arguments and the committed one its 15."""
+    from ex4dgs_tpu_torch import kernel_turns
+
+    older = kernels.declared_signature(_OLDER_DECLARATIONS[entry], entry)
+    committed = kernels.declared_signature((kernels.CSRC / f"{entry}.cu").read_text(), entry)
+    old_names, new_names = [n for n, _ in older], [n for n, _ in committed]
+    assert "offsets" not in old_names and "offsets" in new_names
+    assert [n for n in new_names if n != "offsets"] == old_names
+    assert len(older) == 14 and len(committed) == len(kernels._SIGNATURES[entry]) == 15
+    values = {n: f"<{n}>" for n in new_names if n != "stream"}
+    assert kernel_turns.call_args(old_names, values, "<s>") == [
+        "<s>" if n == "stream" else f"<{n}>" for n in old_names]
+    assert kernel_turns.call_args(new_names, {**values, "offsets": None}, "<s>")[
+        new_names.index("offsets")] is None
+    with pytest.raises(ValueError):
+        kernels.declared_signature(_OLDER_DECLARATIONS[entry], "composite_other")
+
+
+@pytest.mark.parametrize("wrapper", ["fwd", "bwd"])
+@pytest.mark.parametrize("fault", ["dtype", "shape", "strided", "device"])
+def test_kernel_wrappers_refuse_offsets_the_kernels_do_not_take(wrapper, fault):
+    """The subpixel offsets must be f32 [T, P, 2], contiguous, on the
+    frame's device; anything else is refused before anything is built."""
+    tiles, npix = 6, 512
+    off = {"dtype": torch.zeros((tiles, npix, 2), dtype=torch.float64),
+           "shape": torch.zeros((tiles, npix // 2, 2)),
+           "strided": torch.zeros((tiles, npix, 4))[..., ::2],
+           "device": torch.zeros((tiles, npix, 2), device="meta")}[fault]
+    kw = dict(grid_x=3, tile_x=32, tile_y=16, offsets=off)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="offsets"):
+        if wrapper == "fwd":
+            kernels.composite_fwd(*_wrapper_args(), track_idx=True, **kw)
+        else:
+            kernels.composite_bwd(*_bwd_args(), **kw)
+    assert kernels.launches == before and not kernels._libs

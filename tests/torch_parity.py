@@ -125,14 +125,15 @@ def projected_scene(n=300, seed=0, tile=(32, 16), flow_scale=0.1):
             dict(proj=proj_t, colors=colors_t, flow=tt(flow), gx=gx, gy=gy))
 
 
-def backward_inputs(j, capacity, tile, seed=11, scale=1e-3):
+def backward_inputs(j, capacity, tile, seed=11, scale=1e-3, offsets=None):
     """Inputs of the backward compositing step for both packages, from a
     projected_scene `j` (call inside `jax_tiles(*tile)`): each package's
     packed buffer, the tile ranges, and seeded cotangents (gacc [T, P, 8]
     and gend [T, P, 1], normal with std `scale`) with acdot formed from the
     forward's accum as the autograd function forms it, and the forward's
-    tfinal. Returns (jax dict, torch dict) with keys data, starts, stops,
-    gacc, acdot, gend, tfinal, and grid_x."""
+    tfinal (composited with the per-tile subpixel `offsets`, a numpy
+    [T, P, 2], when given). Returns (jax dict, torch dict) with keys data,
+    starts, stops, gacc, acdot, gend, tfinal, grid_x and offsets."""
     from ex4dgs_tpu.ops import rasterize_pallas as jrp
     from ex4dgs_tpu_torch.ops import rasterize_cuda as trc
     from ex4dgs_tpu_torch.ops.binning import Binning
@@ -143,9 +144,10 @@ def backward_inputs(j, capacity, tile, seed=11, scale=1e-3):
     proj = Projected(*(tt(a) for a in j["proj"]))
     b = Binning(**{f: tt(getattr(bj, f)) for f in Binning._fields})
     data_t, gid_t = trc.pack_sorted(proj, tt(j["colors"]), tt(j["flow"]), b)
+    off_t = None if offsets is None else tt(offsets)
     accum, tfinal, _ = trc.composite_tiles_plain(
         data_t, gid_t, b.tile_start, b.tile_stop, grid_x=j["gx"], tile_x=tile[0],
-        tile_y=tile[1], track_idx=False)
+        tile_y=tile[1], track_idx=False, offsets=off_t)
     T, npix = accum.shape[:2]
     rng = np.random.default_rng(seed)
     gacc = (rng.normal(size=(T, npix, 8)) * scale).astype(np.float32)
@@ -154,7 +156,8 @@ def backward_inputs(j, capacity, tile, seed=11, scale=1e-3):
     arrays = dict(gacc=gacc, acdot=acdot.astype(np.float32), gend=gend,
                   tfinal=tfinal.numpy())
     out_j = dict(data=data_j, starts=bj.tile_start, stops=bj.tile_stop, grid_x=j["gx"],
+                 offsets=None if offsets is None else jnp.asarray(offsets),
                  **{k: jnp.asarray(v) for k, v in arrays.items()})
     out_t = dict(data=data_t.detach(), starts=b.tile_start, stops=b.tile_stop,
-                 grid_x=j["gx"], **{k: tt(v) for k, v in arrays.items()})
+                 grid_x=j["gx"], offsets=off_t, **{k: tt(v) for k, v in arrays.items()})
     return out_j, out_t
