@@ -11,15 +11,20 @@ counterpart is found by path:
               compositing kernels' wrappers, their plain versions and the
               autograd functions), losses
   models/     config, capacity-padded Gaussian state, temporal queries,
-              the RAdam optimizer
+              the RAdam optimizer, density control (host numpy events,
+              pull/push)
+  data/       COLMAP readers, the N3V/Technicolor/COLMAP scene readers,
+              cameras, Scene and the image prefetcher with its device cache
+  io/         PLY, model PLY and checkpoint files (either package's)
   rendering   the public render API
-  train/      the training step
+  train/      the training step, the Trainer, and the training CLI
+              (`python -m ex4dgs_tpu_torch.train`)
   synthetic   synthetic scenes and cameras
   probes/     the layout probes of tools/tpu_probes/ (P1 `unaligned`, P2
               `outspec`), their kernels' plain versions and entry points
-  bench_frame the bench scene and frame the kernels are measured on;
-              kernel_turns times either compositing kernel against other
-              builds of it
+  bench_frame the bench scene and frame the kernels are measured on, and
+              a seeded on-disk N3V scene; kernel_turns times either
+              compositing kernel against other builds of it
 
 Entry points put their tensors on `cuda` unless the caller passes
 `device="cpu"`; without a GPU they raise instead of falling back.

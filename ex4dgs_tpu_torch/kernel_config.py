@@ -13,10 +13,18 @@ configurations can live in one process.
 
 Tiles become the image by compositing.tiles_to_image, the JAX package's
 default ("naive") assembly; it has no alternative here, so it is no knob.
+
+A checkpoint records the config as `to_json()` (`extra:kernel_config`).
+`from_dict` reads the port's record and the JAX package's alike: it takes
+tile_x, tile_y and exact_sort, and ignores the JAX package's TPU-only knobs
+(pair, g_chunk, win_align, bufs, pair_fwd, tight_cull, aligned_layout,
+kernel_dot, power, pack_vjp, ssim_blur, scan_dot, untile), which shape
+Pallas kernels the port does not have.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,3 +46,16 @@ class KernelConfig:
                 f"invalid KernelConfig {self}: tile area must be a multiple "
                 "of 32 (one warp) and at most 1024 (one thread block)")
         return self
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), sort_keys=True)
+
+    @staticmethod
+    def from_dict(d: dict) -> "KernelConfig":
+        """The config recorded in `d` (the port's `to_json()` or the JAX
+        package's, parsed): its tile shape and sort; other keys are
+        ignored."""
+        base = KernelConfig()
+        return KernelConfig(tile_x=int(d.get("tile_x", base.tile_x)),
+                            tile_y=int(d.get("tile_y", base.tile_y)),
+                            exact_sort=bool(d.get("exact_sort", base.exact_sort))).validate()

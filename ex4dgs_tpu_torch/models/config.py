@@ -1,6 +1,7 @@
 """Configuration: the port's own copy of `ex4dgs_tpu/models/config.py`
-(the model and optimization groups). Same fields, same defaults, same JSON
-overlay rule (unknown keys skipped), so one JSON config drives both packages.
+(the model and optimization groups). Same fields, same defaults,
+same JSON overlay rule (unknown keys skipped), so one JSON config drives
+both packages.
 """
 from __future__ import annotations
 
@@ -112,3 +113,12 @@ def overlay_json(cfg: Any, json_path_or_dict) -> Any:
         data = dict(json_path_or_dict)
     fields = {f.name for f in dataclasses.fields(cfg)}
     return dataclasses.replace(cfg, **{k: v for k, v in data.items() if k in fields})
+
+
+def load_configs(json_path: str) -> tuple[ModelConfig, OptimizationConfig]:
+    """(model, optimization) configs from one JSON file, each taking the
+    keys it knows. The reference's pipeline toggles (JAX's PipelineConfig)
+    are not kept: nothing in the port reads them."""
+    with open(json_path) as f:
+        data = json.load(f)
+    return overlay_json(ModelConfig(), data), overlay_json(OptimizationConfig(), data)

@@ -88,6 +88,14 @@ class GaussianModel:
     def device(self) -> torch.device:
         return self.params["xyz"].device
 
+    def n_static(self) -> torch.Tensor:
+        """Active static splats, a 0-d tensor on the model's device."""
+        return self.static_mask.sum()
+
+    def n_dynamic(self) -> torch.Tensor:
+        """Active dynamic splats, a 0-d tensor on the model's device."""
+        return self.dynamic_mask.sum()
+
     def replace(self, **changes) -> "GaussianModel":
         return dataclasses.replace(self, **changes)
 

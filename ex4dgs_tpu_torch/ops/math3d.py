@@ -231,6 +231,10 @@ def fov2focal(fov: float, pixels: float) -> float:
     return pixels / (2 * math.tan(fov / 2))
 
 
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2 * math.atan(pixels / (2 * focal))
+
+
 def ndc2pix(v, size):
     """NDC [-1, 1] -> pixel-centre coordinates."""
     return ((v + 1.0) * size - 1.0) * 0.5

@@ -243,6 +243,13 @@ def tfinal_rel_err(tf_k, tf_p) -> tuple[float, int]:
 # plain version: an element may differ by BWD_RTOL of itself plus BWD_ATOL of
 # its row group's largest magnitude.
 BWD_RTOL, BWD_ATOL = 1e-5, 1e-6
+# Where float32 evaluations of the closed form do not meet BWD_RTOL/BWD_ATOL
+# against each other (near-singular conics, long running sums that cancel),
+# the port's error may reach this multiple of a reference evaluation's: on
+# the hard frames, of JAX's float32 error against float64
+# (tests/test_torch_backward.py); on a frame of the trainer's, of the plain
+# version's spread against itself (chip_smoke.py).
+HARD_FRAME_RATIO = 2.0
 BWD_ROWS = {"xy": slice(0, 2), "conic": slice(2, 5), "opacity": slice(5, 6),
             "features": slice(6, 14)}
 

@@ -1,0 +1,172 @@
+"""Training CLI of the port — the JAX package's `train.py` surface, run on
+one CUDA device.
+
+    python -m ex4dgs_tpu_torch.train --config configs/N3V/n3v_base.json \
+        --source_path <scene> --model_path <out> [--iterations N] \
+        [--start_checkpoint chkpntN.npz] [--device cpu]
+
+A JSON config overlays the ModelConfig/OptimizationConfig defaults first
+(unknown keys ignored), then every field of either is settable as
+--<name>. The run trains on `cuda` unless --device names another device,
+and raises where there is no CUDA device instead of training on the CPU.
+At each save iteration (--save_iterations, --checkpoint_iterations and the
+last iteration) it writes `point_cloud/iteration_N/point_cloud.ply` and
+`chkpntN.npz` under the model path; at the end, `train_report.json` there:
+the losses, event counts and times, n_static/n_dynamic after each event,
+the GT cache's hits and bytes, the kernels' launch counts and the host
+clock per iteration.
+
+Not here yet: the JAX CLI's mesh, multi-host, backend, debug-snapshot and
+live-viewer flags.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import statistics
+import sys
+import time
+
+
+def _add_dataclass_args(parser, cls):
+    for f in dataclasses.fields(cls):
+        if f.type in ("bool", bool):
+            parser.add_argument(f"--{f.name}", type=lambda s: s.lower() in ("1", "true", "yes"),
+                                default=None)
+        else:
+            ftype = {"int": int, "float": float, "str": str}.get(str(f.type), str)
+            parser.add_argument(f"--{f.name}", type=ftype, default=None)
+
+
+def parse_args(argv=None):
+    from ..models.config import ModelConfig, OptimizationConfig
+
+    parser = argparse.ArgumentParser(prog="python -m ex4dgs_tpu_torch.train")
+    parser.add_argument("--config", type=str, default=None)
+    parser.add_argument("--start_checkpoint", type=str, default=None)
+    parser.add_argument("--save_iterations", type=int, nargs="*", default=[])
+    # reference flag alias: checkpoints save alongside PLYs in Trainer.save
+    parser.add_argument("--checkpoint_iterations", type=int, nargs="*", default=[])
+    parser.add_argument("--test_iterations", type=int, nargs="*", default=[])
+    parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device to train on (default cuda)")
+    _add_dataclass_args(parser, ModelConfig)
+    _add_dataclass_args(parser, OptimizationConfig)
+    return parser, parser.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    parser, args = parse_args(argv)
+    from .. import kernels, resolve_device
+    from ..models.config import ModelConfig, OptimizationConfig, load_configs, overlay_json
+
+    dev = resolve_device(args.device)  # raises before anything is read without CUDA
+    cfg, opt = load_configs(args.config) if args.config else (ModelConfig(), OptimizationConfig())
+    overrides = {k: v for k, v in vars(args).items() if v is not None}
+    cfg = overlay_json(cfg, {k: v for k, v in overrides.items()
+                             if k in {f.name for f in dataclasses.fields(ModelConfig)}})
+    opt = overlay_json(opt, {k: v for k, v in overrides.items()
+                             if k in {f.name for f in dataclasses.fields(OptimizationConfig)}})
+    if not cfg.source_path:
+        parser.error("--source_path is required")
+    model_path = cfg.model_path or os.path.join("output", os.path.basename(cfg.source_path))
+    os.makedirs(model_path, exist_ok=True)
+    with open(os.path.join(model_path, "cfg_args.json"), "w") as f:
+        json.dump({**dataclasses.asdict(cfg), **dataclasses.asdict(opt)}, f, indent=1)
+
+    from ..data.scene import Scene
+    from ..io.checkpoint import digest, load_checkpoint
+    from ..kernel_config import KernelConfig
+    from ..models.density import push
+    from .trainer import Trainer
+
+    t0 = time.perf_counter()
+    scene = Scene(cfg, model_path=model_path, save_input=True)
+    scene_s = time.perf_counter() - t0
+    model = opt_state = kernel = None
+    if args.start_checkpoint:
+        hm, start_it, extra = load_checkpoint(args.start_checkpoint)
+        model, opt_state = push(hm, cfg, device=dev)
+        if "kernel_config" in extra:
+            kernel = KernelConfig.from_dict(json.loads(str(extra["kernel_config"])))
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, opt, scene, model=model, opt_state=opt_state, seed=args.seed,
+                      test_iterations=tuple(args.test_iterations), kernel=kernel, device=dev)
+    init_s = time.perf_counter() - t0
+    if args.start_checkpoint:
+        trainer.iteration = start_it
+        if "sample_len" in extra:
+            trainer.sample_len = float(extra["sample_len"])
+            scene.set_sampling_len(trainer.sample_len, sample_every=cfg.sample_every)
+
+    save_at = sorted(set(args.save_iterations) | set(args.checkpoint_iterations)
+                     | {opt.iterations})
+
+    def progress(it, loss, psnr_val):
+        if args.quiet:
+            return
+        print(f"[{it}/{opt.iterations}] loss={loss:.5f} psnr={psnr_val:.2f} "
+              f"static={int(trainer.model.n_static())} "
+              f"dynamic={int(trainer.model.n_dynamic())}", flush=True)
+
+    runs, saved, save_ms = [], {}, []
+    try:
+        for target in save_at:
+            if trainer.iteration >= target:
+                continue
+            runs.append(trainer.train(iterations=target, progress=progress))
+            print(f"[ITER {target}] saving", flush=True)
+            t0 = time.perf_counter()
+            saved[target] = digest(trainer.save(model_path, target))
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+        cache = trainer.prefetcher
+        gt_cache = {"hits": cache.hits, "decodes": cache.decodes, "bytes": cache.cache_bytes,
+                    "decode_ms": cache.decode_ms, "upload_ms": cache.upload_ms}
+    finally:
+        trainer.close()
+
+    iter_ms = [ms for r in runs for ms in r["iter_ms"]]
+    first = trainer.iteration - len(iter_ms) + 1
+    events_at = {it for r in runs for it in r["event_iterations"]}
+    quiet_ms = [ms for i, ms in enumerate(iter_ms, first) if i not in events_at]
+    report = {
+        "device": str(dev),
+        "scene_s": scene_s,
+        "init_s": init_s,
+        "save_ms": save_ms,
+        "iterations": [first, trainer.iteration],
+        "loss": [x for r in runs for x in r["loss"]],
+        "psnr": [x for r in runs for x in r["psnr"]],
+        "timestamps": [x for r in runs for x in r["timestamps"]],
+        "test_reports": [rep for r in runs for rep in r.get("test_reports", [])],
+        "iter_ms": iter_ms,
+        "ms_per_iteration": statistics.mean(iter_ms) if iter_ms else None,
+        "ms_per_iteration_without_events": statistics.mean(quiet_ms) if quiet_ms else None,
+        "event_iterations": sorted(events_at),
+        "event_counts": trainer.event_counts,
+        "event_ms": trainer.event_ms,
+        "pull_ms": trainer.pull_ms,
+        "push_ms": trainer.push_ms,
+        "event_log": trainer.event_log,
+        "steps": trainer.steps,
+        "overflow_retries": trainer.overflow_count,
+        "test_renders": trainer.test_renders,
+        "capacity": trainer.capacity,
+        "gt_cache": gt_cache,
+        "kernel_launches": dict(kernels.launches),
+        "saved": saved,
+    }
+    with open(os.path.join(model_path, "train_report.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print("done", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -444,7 +444,7 @@ def test_transposed_reduction_leaves_each_sum_in_its_lanes(kind):
 # difference of large terms, and the port rounds each of its products and
 # sums (the kernels' pinned arithmetic) where XLA fuses some of them; with
 # the power alone taken in float64 the port's error falls below JAX's.
-HARD_FRAME_RATIO = 2.0
+HARD_FRAME_RATIO = trc.HARD_FRAME_RATIO
 HARD_KINDS = ["threshold", "singular", "adversarial"]
 _U = 2.0 ** -24
 

@@ -1,11 +1,13 @@
 """The port's package boundary: what it imports, where it runs, and what its
 kernel wrapper accepts.
 
-- No file of ex4dgs_tpu_torch/, and not chip_smoke.py, imports `jax` or the
-  JAX package `ex4dgs_tpu` (an AST scan, and a fresh interpreter that
-  imports the whole port and finds neither module loaded).
+- No file of ex4dgs_tpu_torch/ (the training CLI `train/__main__.py`
+  included), and not chip_smoke.py, imports `jax` or the JAX package
+  `ex4dgs_tpu` (an AST scan, and a fresh interpreter that imports the whole
+  port and finds neither module loaded).
 - The entry points put their tensors on `cuda` unless given `device="cpu"`,
   and raise where there is no CUDA device; they never fall back to the CPU.
+  The training CLI without --device raises before it reads anything.
 - `ex4dgs_tpu_torch.kernels` imports where there is no nvcc and no GPU, and
   its wrapper refuses what the kernel does not take before anything is
   built.
@@ -15,18 +17,25 @@ import os
 import pathlib
 import subprocess
 import sys
+import tempfile
+
+import numpy as np
 
 import pytest
 import torch
 
 from ex4dgs_tpu_torch import bench_frame, kernels, rendering, synthetic
+from ex4dgs_tpu_torch.data import readers
+from ex4dgs_tpu_torch.data.cameras import CameraInfo, camera_from_info
+from ex4dgs_tpu_torch.data.scene import ImagePrefetcher, Scene
 from ex4dgs_tpu_torch.kernel_config import KernelConfig
-from ex4dgs_tpu_torch.models import optimizer, state
+from ex4dgs_tpu_torch.models import density, optimizer, state
 from ex4dgs_tpu_torch.models.config import ModelConfig, OptimizationConfig
 from ex4dgs_tpu_torch.models.temporal import point_data_at_t
 from ex4dgs_tpu_torch.ops import rasterize_cuda
 from ex4dgs_tpu_torch.probes import outspec, unaligned
-from ex4dgs_tpu_torch.train import step
+from ex4dgs_tpu_torch.train import __main__ as train_cli
+from ex4dgs_tpu_torch.train import step, trainer
 
 torch.set_num_threads(2)
 
@@ -36,6 +45,14 @@ FORBIDDEN = ("jax", "jaxlib", "ex4dgs_tpu")
 
 def _port_files():
     return sorted((ROOT / "ex4dgs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_the_scan_covers_the_training_entry_point():
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    for path in ("train/__main__.py", "train/trainer.py", "models/density.py", "data/scene.py",
+                 "data/readers.py", "data/cameras.py", "data/colmap.py", "io/checkpoint.py",
+                 "io/model_ply.py", "io/ply.py"):
+        assert f"ex4dgs_tpu_torch/{path}" in names, path
 
 
 def _imported_roots(path: pathlib.Path):
@@ -62,7 +79,9 @@ def test_port_loads_without_jax_in_a_fresh_interpreter():
         "import ex4dgs_tpu_torch.synthetic, ex4dgs_tpu_torch.ops.rasterize_tiled\n"
         "import ex4dgs_tpu_torch.train.step, ex4dgs_tpu_torch.ops.losses\n"
         "import ex4dgs_tpu_torch.models.optimizer, ex4dgs_tpu_torch.probes.unaligned\n"
-        "import ex4dgs_tpu_torch.probes.outspec\n"
+        "import ex4dgs_tpu_torch.probes.outspec, ex4dgs_tpu_torch.train.trainer\n"
+        "import ex4dgs_tpu_torch.train.__main__, ex4dgs_tpu_torch.models.density\n"
+        "import ex4dgs_tpu_torch.data.scene, ex4dgs_tpu_torch.io.checkpoint\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not loaded, loaded\n"
@@ -127,12 +146,49 @@ def _call(entry, device, model, cfg, cam):
         return outspec.main(**kw, t=3, reps=1)
     if entry == "probe_make_src":
         return unaligned.make_src(4096, **kw)
+    if entry == "push":
+        hm = density.pull(model, optimizer.init_state(model.params, device="cpu"))
+        return density.push(hm, cfg, **kw)
+    if entry == "render_camera":
+        return camera_from_info(_camera_info(), 0, 1).render_camera(**kw)
+    if entry == "prefetcher_cache":
+        pf = ImagePrefetcher(**kw)
+        pf.close()
+        return pf
+    if entry == "trainer":
+        return trainer.Trainer(cfg, OptimizationConfig(), _memory_scene(cfg), **kw)
+    if entry == "train_cli":
+        with tempfile.TemporaryDirectory() as root:
+            bench_frame.write_n3v_scene(root, n_cams=2, n_frames=2, n_points=40, width=64,
+                                        height=48)
+            argv = ["--source_path", root, "--model_path", os.path.join(root, "out"),
+                    "--iterations", "1", "--quiet", "--start_duration", "1",
+                    "--time_interval", "1", "--time_pad", "1"]
+            rc = train_cli.main(argv + (["--device", device] if device else []))
+            return rc, os.path.exists(os.path.join(root, "out", "chkpnt1.npz"))
     raise AssertionError(entry)
+
+
+def _camera_info():
+    return CameraInfo(uid=1, R=np.eye(3), T=np.array([0.0, 0.0, 4.0]), fovx=1.0, fovy=0.8,
+                      image_path="unread.png", image_name="unread.png", width=64, height=32,
+                      near=0.01, far=100.0, timestamp=0.0)
+
+
+def _memory_scene(cfg):
+    """A Scene whose frames are never read (the trainer reads them when it
+    trains, not when it is built)."""
+    rng = np.random.default_rng(0)
+    pc = readers.PointCloud(rng.normal(size=(30, 3)).astype(np.float32),
+                            rng.uniform(size=(30, 3)).astype(np.float32))
+    info = readers.SceneInfo(pc, [_camera_info()], [], {"radius": 1.0}, "")
+    return Scene(cfg, scene_info=info)
 
 
 ENTRIES = ("make_scene", "ring_cameras", "lookat_camera", "empty_model", "model_from_numpy",
            "camera_from_numpy", "render", "render_points", "init_state", "train_step",
-           "probe_unaligned_main", "probe_outspec_main", "probe_make_src")
+           "probe_unaligned_main", "probe_outspec_main", "probe_make_src", "push",
+           "render_camera", "prefetcher_cache", "trainer", "train_cli")
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -149,6 +205,17 @@ def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry):
         assert out.model.device.type == "cpu" and bool(torch.isfinite(out.loss))
     if entry == "probe_make_src":
         assert out.device.type == "cpu" and out.shape == (16, 4096)
+    if entry == "push":
+        assert out[0].device.type == "cpu" and out[1].step.device.type == "cpu"
+    if entry == "render_camera":
+        assert out.view.device.type == "cpu"
+    if entry == "prefetcher_cache":
+        assert out.device.type == "cpu"
+    if entry == "trainer":
+        assert out.model.device.type == "cpu" and out.opt_state.step.device.type == "cpu"
+        out.close()
+    if entry == "train_cli":
+        assert out == (0, True)
 
 
 def test_bench_scene_needs_cuda_unless_told_cpu(no_cuda):

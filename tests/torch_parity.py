@@ -161,3 +161,39 @@ def backward_inputs(j, capacity, tile, seed=11, scale=1e-3, offsets=None):
     out_t = dict(data=data_t.detach(), starts=b.tile_start, stops=b.tile_stop,
                  grid_x=j["gx"], offsets=off_t, **{k: tt(v) for k, v in arrays.items()})
     return out_j, out_t
+
+
+def port_pull(jax_model):
+    """The port's HostModel of a JAX model's weights (carried across with
+    port_model, fresh optimizer state)."""
+    from ex4dgs_tpu_torch.models.density import pull
+    from ex4dgs_tpu_torch.models.optimizer import init_state
+
+    m = port_model(jax_model)
+    return pull(m, init_state(m.params, device="cpu"))
+
+
+def as_jax_host(hm):
+    """A copy of the port's HostModel as the JAX package's HostModel."""
+    import copy
+
+    from ex4dgs_tpu.models.density import HostModel
+
+    return HostModel(**copy.deepcopy(vars(hm)))
+
+
+def assert_hosts_equal(port, jax_hm, what=""):
+    """Every array (dtype and value) and scalar of the port's HostModel and
+    the JAX package's equal, exactly."""
+    from ex4dgs_tpu.models.density import HostModel as JHostModel
+    from ex4dgs_tpu_torch.models.density import HostModel
+
+    assert isinstance(port, HostModel) and isinstance(jax_hm, JHostModel)
+    for group in ("params", "stats", "mu", "nu"):
+        p, j = getattr(port, group), getattr(jax_hm, group)
+        assert sorted(p) == sorted(j), (what, group)
+        for k in j:
+            assert p[k].dtype == j[k].dtype, (what, group, k)
+            np.testing.assert_array_equal(p[k], j[k], err_msg=f"{what} {group} {k}")
+    for k in ("step", "active_sh_degree", "duration", "keyframe_num"):
+        assert getattr(port, k) == getattr(jax_hm, k), (what, k)
