@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's render and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch/CUDA port's render, training, eval and viewer paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -116,6 +116,28 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    iterations before its first event (losses within rtol 1e-5, the same
    cameras and backgrounds), and a forced overflow on the card (capacity
    256: one more launch of kernel A per retry, the same first loss).
+13. eval and viewer path: the render CLI, `python -m
+   ex4dgs_tpu_torch.render_cli --model_path <phase 12's model> --iteration
+   150 --fps_inner 100`, in a process of its own, on both splits at
+   1352x1014, with EX4DGS_LPIPS_WEIGHTS naming seeded random AlexNet/VGG
+   weights written here (their values are labelled "seeded random weights,
+   not LPIPS"): each split's frame count is the scene's sampled camera
+   count, every metric is finite, mean_metrics.json carries the
+   reference's keys, kernel A launched what the recipe implies (each
+   metric frame and overflow retry; on the test split also the probe
+   render, 20 x 100 FPS calls and one round of 100 at the training-sized
+   capacity), and the test PSNR equals the trainer's at 150 within 1e-3 dB
+   where the frame sets are the same. Printed: the FPS recipe's ms/frame,
+   FPS and Mpix/s beside phase 4's, the host ms per frame of each metric.
+   Then LPIPS (alex, vgg) of one rendered frame on the card against the CPU
+   within rtol 1e-4, atol 1e-6, with TF32 off; viewer requests for one test
+   camera at 1352x1014 (3 timestamps and a keep-alive) over loopback, each
+   reply bit-equal to the converted render(..., track_idx=False) of its
+   camera, one launch of kernel A per non-empty request; the tiny scene's
+   Trainer serving one request during 3 iterations; and the quality
+   probe's surface scene (50k + 5k splats, seed 7) from its 19-camera rig
+   at 800x600, t = 0 and 4: finite, visible, moving, one launch per render,
+   one camera equal to the CPU's plain render within 3e-5.
 
 The lines before the last are the card's name and power limit (as
 nvidia-smi prints them) and a JSON object with one entry per kernel; the
@@ -810,11 +832,12 @@ def run_cli(args: list, root: str, timeout: int) -> dict:
 
 def check_launches(what: str, report: dict) -> None:
     """Kernel A once per train_step (iterations, plus one per overflow
-    retry) and once per test render; kernel B once per iteration; no other
-    kernel."""
+    retry), per test render and per viewer request served; kernel B once
+    per iteration; no other kernel."""
     first, last = report["iterations"]
     iters = last - first + 1
-    want = {"composite_fwd": iters + report["overflow_retries"] + report["test_renders"],
+    want = {"composite_fwd": (iters + report["overflow_retries"] + report["test_renders"]
+                              + report["gui_renders"]),
             "composite_bwd": iters}
     got = report["kernel_launches"]
     if got != {**dict.fromkeys(got, 0), **want}:
@@ -908,13 +931,14 @@ def trainer_kernels_hold(dev, model, cfg, capacity: int, card: str) -> dict:
     return {"composite_fwd": err_a, "composite_bwd": err_b}
 
 
-def trainer_phase(dev, card: str) -> dict:
+def trainer_phase(dev, card: str, tmp: str) -> tuple[dict, str, dict]:
     """Phase 12: the training entry point at full width through a whole
     (shortened) schedule, the kernels against their plain versions on its
     saved model, a resume, the events the schedule does not reach, and the
-    trainer on a tiny scene on the card against the CPU. Returns kernels A
-    and B's launches in the trainer's runs and their largest difference
-    from the plain versions on the saved model."""
+    trainer on a tiny scene on the card against the CPU. The scene and the
+    model go to `tmp`. Returns kernels A and B's launches in the trainer's
+    runs and their largest difference from the plain versions on the saved
+    model, the model directory, and the first run's train_report.json."""
     from ex4dgs_tpu_torch.bench_frame import write_n3v_scene
     from ex4dgs_tpu_torch.io.checkpoint import digest, load_checkpoint
     from ex4dgs_tpu_torch.models import density as D
@@ -922,87 +946,86 @@ def trainer_phase(dev, card: str) -> dict:
 
     root = os.path.dirname(os.path.abspath(__file__))
     config = os.path.join(root, "configs", "N3V", "n3v_base.json")
-    with tempfile.TemporaryDirectory(prefix="ex4dgs_phase12_") as tmp:
-        scene = os.path.join(tmp, "scene")
-        t0 = time.perf_counter()
-        write_n3v_scene(scene, n_cams=4, n_frames=8, n_points=100_000, seed=0)
-        log(f"# trainer path: wrote a seeded N3V scene (4 cameras x 8 frames of 2704x2028 PNG, "
-            f"100000 points) in {time.perf_counter() - t0:.1f} s")
-        out = os.path.join(tmp, "model")
-        base = ["--config", config, "--source_path", scene, "--model_path", out, "--quiet",
-                *TRAIN_SCHEDULE]
-        first = run_cli(base + ["--iterations", str(TRAIN_ITERS), "--save_iterations",
-                                str(TRAIN_ITERS), "--test_iterations", str(TRAIN_ITERS)],
-                        root, 900)
-        trainer_report_lines(f"trainer path ({TRAIN_ITERS} iterations, config {config})",
-                             first, card)
-        losses = np.asarray(first["loss"])
-        if losses.shape != (TRAIN_ITERS,) or not np.isfinite(losses).all():
-            fail(f"trainer path: {losses.shape[0]} losses, finite {np.isfinite(losses).all()}")
-        early, late = losses[:10].mean(), losses[-10:].mean()
-        log(f"# trainer path: loss {early:.6f} (mean of the first 10) -> {late:.6f} (last 10); "
-            f"psnr {np.mean(first['psnr'][:10]):.3f} -> {np.mean(first['psnr'][-10:]):.3f} dB")
-        if not late < early:
-            fail("trainer path: the loss did not fall")
-        missing = [k for k in SCHEDULED_KINDS if first["event_counts"].get(k, 0) == 0]
-        if missing or first["event_counts"]["expand_duration"] < 2:  # one at construction
-            fail(f"trainer path: event kinds that never ran {missing}; counts "
-                 f"{first['event_counts']}")
-        check_launches("trainer path", first)
-        if first["test_renders"] == 0 or first["gt_cache"]["hits"] == 0:
-            fail("trainer path: no test render or no GT cache hit")
+    scene = os.path.join(tmp, "scene")
+    t0 = time.perf_counter()
+    write_n3v_scene(scene, n_cams=4, n_frames=8, n_points=100_000, seed=0)
+    log(f"# trainer path: wrote a seeded N3V scene (4 cameras x 8 frames of 2704x2028 PNG, "
+        f"100000 points) in {time.perf_counter() - t0:.1f} s")
+    out = os.path.join(tmp, "model")
+    base = ["--config", config, "--source_path", scene, "--model_path", out, "--quiet",
+            *TRAIN_SCHEDULE]
+    first = run_cli(base + ["--iterations", str(TRAIN_ITERS), "--save_iterations",
+                            str(TRAIN_ITERS), "--test_iterations", str(TRAIN_ITERS)],
+                    root, 900)
+    trainer_report_lines(f"trainer path ({TRAIN_ITERS} iterations, config {config})",
+                         first, card)
+    losses = np.asarray(first["loss"])
+    if losses.shape != (TRAIN_ITERS,) or not np.isfinite(losses).all():
+        fail(f"trainer path: {losses.shape[0]} losses, finite {np.isfinite(losses).all()}")
+    early, late = losses[:10].mean(), losses[-10:].mean()
+    log(f"# trainer path: loss {early:.6f} (mean of the first 10) -> {late:.6f} (last 10); "
+        f"psnr {np.mean(first['psnr'][:10]):.3f} -> {np.mean(first['psnr'][-10:]):.3f} dB")
+    if not late < early:
+        fail("trainer path: the loss did not fall")
+    missing = [k for k in SCHEDULED_KINDS if first["event_counts"].get(k, 0) == 0]
+    if missing or first["event_counts"]["expand_duration"] < 2:  # one at construction
+        fail(f"trainer path: event kinds that never ran {missing}; counts "
+             f"{first['event_counts']}")
+    check_launches("trainer path", first)
+    if first["test_renders"] == 0 or first["gt_cache"]["hits"] == 0:
+        fail("trainer path: no test render or no GT cache hit")
 
-        # the saved files, and the checkpoint reloaded bit-equal on the card
-        ply = os.path.join(out, "point_cloud", f"iteration_{TRAIN_ITERS}", "point_cloud.ply")
-        ckpt = os.path.join(out, f"chkpnt{TRAIN_ITERS}.npz")
-        if not (os.path.exists(ply) and os.path.exists(ckpt)):
-            fail("trainer path: the PLY or the checkpoint is missing")
-        cfg = overlay_json(ModelConfig(), os.path.join(out, "cfg_args.json"))  # the CLI's
-        hm, it, _ = load_checkpoint(ckpt)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model, state = D.push(hm, cfg, device=dev)
-        torch.cuda.synchronize()
-        push_ms = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        back = D.pull(model, state)
-        pull_ms = (time.perf_counter() - t0) * 1e3
-        saved = first["saved"][str(TRAIN_ITERS)]
-        reload_ok = digest(hm) == saved and digest(back) == saved and it == TRAIN_ITERS
-        log(f"# trainer path: checkpoint {os.path.getsize(ckpt) / 2**20:.1f} MiB, "
-            f"{hm.n_static} static + {hm.n_dynamic} dynamic rows, keyframes {hm.keyframe_num}; "
-            f"push(load_checkpoint) on the card {push_ms:.1f} ms, pull {pull_ms:.1f} ms; "
-            f"bit-equal to the trainer's pull at save {reload_ok}")
-        if not reload_ok:
-            fail("trainer path: the checkpoint does not reload bit-equal")
-        errs = trainer_kernels_hold(dev, model, cfg, first["capacity"], card)
+    # the saved files, and the checkpoint reloaded bit-equal on the card
+    ply = os.path.join(out, "point_cloud", f"iteration_{TRAIN_ITERS}", "point_cloud.ply")
+    ckpt = os.path.join(out, f"chkpnt{TRAIN_ITERS}.npz")
+    if not (os.path.exists(ply) and os.path.exists(ckpt)):
+        fail("trainer path: the PLY or the checkpoint is missing")
+    cfg = overlay_json(ModelConfig(), os.path.join(out, "cfg_args.json"))  # the CLI's
+    hm, it, _ = load_checkpoint(ckpt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, state = D.push(hm, cfg, device=dev)
+    torch.cuda.synchronize()
+    push_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back = D.pull(model, state)
+    pull_ms = (time.perf_counter() - t0) * 1e3
+    saved = first["saved"][str(TRAIN_ITERS)]
+    reload_ok = digest(hm) == saved and digest(back) == saved and it == TRAIN_ITERS
+    log(f"# trainer path: checkpoint {os.path.getsize(ckpt) / 2**20:.1f} MiB, "
+        f"{hm.n_static} static + {hm.n_dynamic} dynamic rows, keyframes {hm.keyframe_num}; "
+        f"push(load_checkpoint) on the card {push_ms:.1f} ms, pull {pull_ms:.1f} ms; "
+        f"bit-equal to the trainer's pull at save {reload_ok}")
+    if not reload_ok:
+        fail("trainer path: the checkpoint does not reload bit-equal")
+    errs = trainer_kernels_hold(dev, model, cfg, first["capacity"], card)
 
-        # the event kinds the schedule does not reach, on the saved model
-        timed = {}
-        for kind in UNSCHEDULED_KINDS:
-            h = D.pull(model, state)
-            t0 = time.perf_counter()
-            getattr(D, kind)(h)
-            timed[kind] = ((time.perf_counter() - t0) * 1e3, h.n_static, h.n_dynamic)
-        log("# trainer path: unscheduled events on the saved model (numpy ms, n_static, "
-            "n_dynamic after): " + "; ".join(f"{k} {t:.1f} ms {ns} {nd}"
-                                            for k, (t, ns, nd) in timed.items()))
-        del model, state, back
+    # the event kinds the schedule does not reach, on the saved model
+    timed = {}
+    for kind in UNSCHEDULED_KINDS:
+        h = D.pull(model, state)
+        t0 = time.perf_counter()
+        getattr(D, kind)(h)
+        timed[kind] = ((time.perf_counter() - t0) * 1e3, h.n_static, h.n_dynamic)
+    log("# trainer path: unscheduled events on the saved model (numpy ms, n_static, "
+        "n_dynamic after): " + "; ".join(f"{k} {t:.1f} ms {ns} {nd}"
+                                        for k, (t, ns, nd) in timed.items()))
+    del model, state, back
 
-        resumed = run_cli(base + ["--iterations", str(TRAIN_ITERS + RESUME_ITERS),
-                                  "--start_checkpoint", ckpt], root, 600)
-        trainer_report_lines("trainer path, resumed", resumed, card)
-        if (resumed["iterations"] != [TRAIN_ITERS + 1, TRAIN_ITERS + RESUME_ITERS]
-                or not np.isfinite(resumed["loss"]).all()):
-            fail(f"trainer path: the resumed run took iterations {resumed['iterations']}, "
-                 f"losses finite {np.isfinite(resumed['loss']).all()}")
-        check_launches("trainer path, resumed", resumed)
+    resumed = run_cli(base + ["--iterations", str(TRAIN_ITERS + RESUME_ITERS),
+                              "--start_checkpoint", ckpt], root, 600)
+    trainer_report_lines("trainer path, resumed", resumed, card)
+    if (resumed["iterations"] != [TRAIN_ITERS + 1, TRAIN_ITERS + RESUME_ITERS]
+            or not np.isfinite(resumed["loss"]).all()):
+        fail(f"trainer path: the resumed run took iterations {resumed['iterations']}, "
+             f"losses finite {np.isfinite(resumed['loss']).all()}")
+    check_launches("trainer path, resumed", resumed)
 
     small = small_trainer_check(dev, card)
     return {name: {"trainer_launches": first["kernel_launches"][name]
                    + resumed["kernel_launches"][name] + small[name],
                    "trainer_max_abs_err": errs[name]}
-            for name in ("composite_fwd", "composite_bwd")}
+            for name in ("composite_fwd", "composite_bwd")}, out, first
 
 
 def small_trainer_check(dev, card: str) -> dict:
@@ -1092,6 +1115,462 @@ def small_trainer_check(dev, card: str) -> dict:
     return launched
 
 
+# Phase 13: the eval and viewer paths on phase 12's model and on the
+# surface scene of tools/tpu_probes/_tpu_quality2.py (800x600, 19 cameras).
+EVAL_ITERATION, EVAL_FPS_INNER, EVAL_FPS_ROUNDS = TRAIN_ITERS, 100, 20
+MEAN_KEYS = ("PSNR", "SSIM", "SKSSIM", "SKSSIM2", "LPIPS", "LPIPSVGG", "times")
+LPIPS_RTOL, LPIPS_ATOL = 1e-4, 1e-6  # tests/test_eval_metrics.py's LPIPS tolerance
+IMAGE_TOL = 3e-5  # tests/test_pallas.py's image tolerance
+VIEWER_TIMESTAMPS = (0.0, 2.5, 5.0)
+SURFACE_W, SURFACE_H, SURFACE_CAMS = 800, 600, 19
+
+
+def lpips_random_weights(net: str, seed: int) -> dict:
+    """Seeded random weights in the LPIPS npz layout (conv{i}_w, conv{i}_b,
+    lin{i}_w) for the port's layer table of `net`: they exercise the
+    metric's arithmetic, they are not LPIPS."""
+    from ex4dgs_tpu_torch.eval.lpips import LAYERS
+
+    rng = np.random.default_rng(seed)
+    w, cin, ci, li = {}, 3, 0, 0
+    for spec in LAYERS[net]:
+        if spec[0] == "conv":
+            o, k = spec[1], spec[2]
+            w[f"conv{ci}_w"] = rng.normal(scale=math.sqrt(2.0 / (cin * k * k)),
+                                          size=(o, cin, k, k)).astype(np.float32)
+            w[f"conv{ci}_b"] = rng.normal(scale=0.05, size=(o,)).astype(np.float32)
+            cin, ci = o, ci + 1
+        elif spec[0] == "tap":
+            w[f"lin{li}_w"] = np.abs(rng.normal(size=(cin,))).astype(np.float32)
+            li += 1
+    return w
+
+
+def load_trained(dev, model_dir: str, iteration: int):
+    """(model on dev, cfg, scene sampled as the render CLI samples it)."""
+    from ex4dgs_tpu_torch.data.scene import Scene
+    from ex4dgs_tpu_torch.io.checkpoint import load_checkpoint
+    from ex4dgs_tpu_torch.models import density as D
+    from ex4dgs_tpu_torch.models.config import ModelConfig, overlay_json
+
+    cfg = overlay_json(ModelConfig(), os.path.join(model_dir, "cfg_args.json"))
+    scene = Scene(cfg, model_path=model_dir)
+    hm, _, _ = load_checkpoint(os.path.join(model_dir, f"chkpnt{iteration}.npz"))
+    model, _ = D.push(hm, cfg, device=dev)
+    scene.set_sampling_len(hm.duration)
+    return model, cfg, scene
+
+
+def eval_cli_check(model_dir: str, trained: dict, scene, fps_phase4: dict,
+                   weights_dir: str, card: str) -> int:
+    """13.1: the render CLI on phase 12's model, both splits at full width,
+    with the seeded random LPIPS weights. Returns kernel A's launches."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "EX4DGS_LPIPS_WEIGHTS": weights_dir}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "ex4dgs_tpu_torch.render_cli", "--model_path",
+                          model_dir, "--iteration", str(EVAL_ITERATION), "--fps_inner",
+                          str(EVAL_FPS_INNER)], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        log(out.stdout[-3000:])
+        log(out.stderr[-6000:])
+        fail(f"the render CLI exited {out.returncode}")
+    reports = {r["split"]: r for r in (json.loads(line[len("eval_report "):])
+                                       for line in out.stdout.splitlines()
+                                       if line.startswith("eval_report "))}
+    want_frames = {"test": len(scene.sampled_test_cameras()),
+                   "train": len(scene.sampled_train_cameras())}
+    cam0 = scene.sampled_test_cameras()[0]
+    size = f"{cam0.width}x{cam0.height}"
+    launched = 0
+    means, rows_of = {}, {}
+    for split in ("test", "train"):
+        d = os.path.join(model_dir, split, f"ours_{EVAL_ITERATION}")
+        with open(os.path.join(d, "mean_metrics.json")) as f:
+            mean = means[split] = json.load(f)
+        with open(os.path.join(d, "all_metrics_rows.json")) as f:
+            rows = rows_of[split] = json.load(f)
+        rep = reports.get(split)
+        if rep is None or mean["n_frames"] != want_frames[split] or len(rows) != mean["n_frames"]:
+            fail(f"render CLI, {split}: {mean['n_frames']} frames, the scene samples "
+                 f"{want_frames[split]}; report {rep is not None}")
+        keys = MEAN_KEYS if split == "test" else MEAN_KEYS[:-1]
+        values = [mean.get(k) for k in keys] + [r[k] for r in rows for k in
+                                                 ("psnr", "ssim", "ssim_sk", "ssim_sk2",
+                                                  "lpips_alex", "lpips_vgg")]
+        if not all(v is not None and math.isfinite(v) for v in values):
+            fail(f"render CLI, {split}: a metric is missing or not finite: "
+                 f"{ {k: mean.get(k) for k in keys} }")
+        tm = rep["timings"]
+        implied = mean["n_frames"] + tm["overflow_retries"]
+        if split == "test":  # the probe render, the recipe, one round at the capacity
+            implied += 1 + EVAL_FPS_ROUNDS * EVAL_FPS_INNER + EVAL_FPS_INNER
+        got = rep["kernel_launches"]
+        if got != {**dict.fromkeys(got, 0), "composite_fwd": implied}:
+            fail(f"render CLI, {split}: launches {got}, the recipe implies composite_fwd "
+                 f"{implied}")
+        launched += implied
+        st = {k: statistics.mean(v) for k, v in tm["stage_ms"].items()}
+        log(f"# render CLI, {split} split ({mean['n_frames']} frames at {size}): PSNR "
+            f"{mean['PSNR']:.4f} dB, SSIM {mean['SSIM']:.5f}, SKSSIM {mean['SKSSIM']:.5f}, "
+            f"SKSSIM2 {mean['SKSSIM2']:.5f}; LPIPS {mean['LPIPS']:.5f}, LPIPSVGG "
+            f"{mean['LPIPSVGG']:.5f} (seeded random weights, not LPIPS); capacity "
+            f"{tm['capacity']} ({tm['overflow_retries']} overflow retries); host ms per frame: "
+            f"render {st['render']:.2f}, GT load {st['gt_load']:.1f}, PSNR+SSIM "
+            f"{st['psnr_ssim']:.2f}, ssim_skimage {st['ssim_sk']:.1f} (data range 1) and "
+            f"{st['ssim_sk2']:.1f} (2), LPIPS alex {st['lpips_alex']:.2f}, vgg "
+            f"{st['lpips_vgg']:.2f}; launches {got['composite_fwd']} = implied; {card}")
+        if split == "test":
+            log(f"# render CLI FPS recipe ({EVAL_FPS_ROUNDS} x {EVAL_FPS_INNER} calls at the "
+                f"snug capacity {tm['snug_capacity']}, warm-up dropped): "
+                f"{mean['times'] * 1e3:.3f} ms/frame, {mean['fps']:.1f} FPS, "
+                f"{mean['mpixels_per_s']:.2f} Mpix/s; one round at the capacity "
+                f"{tm['capacity']}: {tm['fps_ms_at_capacity']:.3f} ms/frame; phase 4's FPS "
+                f"recipe on the bench scene: {fps_phase4[True]:.3f} (track_idx=True), "
+                f"{fps_phase4[False]:.3f} (False) ms/frame; the CLI took {wall:.1f} s; {card}")
+    # The trainer's test report renders the first (at most 8) test cameras of
+    # its sampling window; the CLI samples to the model's duration, which
+    # may reach further. Both lists are the scene's test cameras in the same
+    # order, so the trainer's frames are the first rows of the CLI's. The
+    # report is taken before the iteration's scheduled events, the
+    # checkpoint after them (the JAX trainer's order), so the two models
+    # are the same only where no event ran at that iteration.
+    (it, rep), = [r for r in trained["test_reports"] if r[0] == EVAL_ITERATION]
+    n = rep["n_frames"]
+    prefix = float(np.mean([r["psnr"] for r in rows_of["test"][:n]]))
+    diff = abs(prefix - rep["psnr"])
+    events = [kind for i, kind, _, _ in trained["event_log"] if i == it]
+    log(f"# render CLI test PSNR {means['test']['PSNR']!r} over its {means['test']['n_frames']} "
+        f"frames (t <= {max(r['timestamp'] for r in rows_of['test']):g}), {prefix!r} over the "
+        f"trainer's {n} (t <= {rows_of['test'][n - 1]['timestamp']:g}); the trainer's at {it}: "
+        f"{rep['psnr']!r}; |diff| {diff:.3g} dB; events after the report at {it}, so in the "
+        f"checkpoint and not in the report: {events or 'none'} (without events the limit is "
+        f"1e-3 dB)")
+    if not (n <= means["test"]["n_frames"] and (events or diff <= 1e-3)):
+        fail("the render CLI's test PSNR disagrees with the trainer's on the same frames")
+    return launched
+
+
+def lpips_card_check(dev, img, gt, card: str) -> dict:
+    """13.2: LPIPS of one rendered frame on the card and on the CPU, with
+    the seeded random weights (EX4DGS_LPIPS_WEIGHTS set by the caller).
+    Returns each net's relative difference."""
+    from ex4dgs_tpu_torch.eval.lpips import LPIPS
+
+    errs = {}
+    for net in ("alex", "vgg"):
+        if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+            fail("TF32 is on while LPIPS runs")
+        g_ev, c_ev = LPIPS(net, device=dev), LPIPS(net, device="cpu")
+        g_ev(img, gt)  # warm-up: cuDNN picks its algorithms
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = g_ev(img, gt)
+        g_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        c = c_ev(img.cpu(), gt.cpu())
+        c_ms = (time.perf_counter() - t0) * 1e3
+        if torch.backends.cudnn.allow_tf32:
+            fail("TF32 turned on while LPIPS ran")
+        errs[net] = abs(g - c) / abs(c)
+        log(f"# LPIPS {net} on one {tuple(img.shape)} frame (seeded random weights, not "
+            f"LPIPS): card {g!r} in {g_ms:.1f} ms, CPU {c!r} in {c_ms:.0f} ms; |diff| "
+            f"{abs(g - c):.3g} (rtol {LPIPS_RTOL:g}, atol {LPIPS_ATOL:g}); cudnn.allow_tf32 "
+            f"{torch.backends.cudnn.allow_tf32}; {card}")
+        if not abs(g - c) <= LPIPS_ATOL + LPIPS_RTOL * abs(c):
+            fail(f"LPIPS {net} on the card disagrees with the CPU")
+    return errs
+
+
+def wire_message(view, proj, width, height, fovx, fovy, t, train=False) -> bytes:
+    """A SIBR viewer request for the mathematical matrices view and proj
+    (the inverse of viewer.py's receive), length-prefixed."""
+    view_t = np.asarray(view, np.float32).T.copy()
+    view_t[:, 1] *= -1
+    view_t[:, 2] *= -1
+    proj_t = np.asarray(proj, np.float32).T.copy()
+    proj_t[:, 1] *= -1
+    payload = json.dumps({
+        "resolution_x": width, "resolution_y": height, "train": train, "fov_x": fovx,
+        "fov_y": fovy, "z_near": 0.01, "z_far": 100.0, "shs_python": False,
+        "rot_scale_python": False, "keep_alive": False, "scaling_modifier": 1.0,
+        "view_matrix": view_t.flatten().tolist(),
+        "view_projection_matrix": proj_t.flatten().tolist(), "timestamp": t}).encode()
+    return len(payload).to_bytes(4, "little") + payload
+
+
+def recv_exact(s, n: int) -> bytes:
+    buf = b""
+    while len(buf) < n:
+        chunk = s.recv(n - len(buf))
+        if not chunk:
+            raise ConnectionError("viewer closed")
+        buf += chunk
+    return buf
+
+
+def serve(viewer, render_fn, messages, n_bytes, source_path: str) -> list:
+    """A client thread sends `messages` and reads a reply of n_bytes[i]
+    image bytes and the verify string for each, timing each round trip,
+    then closes; the caller's thread polls the viewer meanwhile. Returns
+    [(image bytes, verify, ms)]."""
+    import socket
+    import threading
+
+    port = viewer.init()
+    replies, errors = [], []
+
+    def client():
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=120) as s:
+                for msg, n in zip(messages, n_bytes):
+                    t0 = time.perf_counter()
+                    s.sendall(msg)
+                    img = recv_exact(s, n) if n else None
+                    verify = recv_exact(s, int.from_bytes(recv_exact(s, 4), "little"))
+                    replies.append((img, verify, (time.perf_counter() - t0) * 1e3))
+        except OSError as e:
+            errors.append(e)
+
+    th = threading.Thread(target=client)
+    th.start()
+    deadline = time.monotonic() + 120
+    while th.is_alive() and time.monotonic() < deadline:
+        viewer.poll(render_fn, source_path, training_active=True)
+        time.sleep(0.001)
+    th.join(timeout=30)
+    viewer.close()
+    if th.is_alive() or errors or len(replies) != len(messages):
+        fail(f"viewer: {len(replies)} of {len(messages)} replies, errors {errors}")
+    return replies
+
+
+def viewer_check(dev, model, cfg, scene, capacity: int, card: str) -> tuple[int, int]:
+    """13.3: viewer requests for one test camera at full width, served from
+    the loaded model, each reply the converted render of its camera bit for
+    bit; then the tiny scene's Trainer serving a request on the card, and
+    `render_set` on its model giving its test report's PSNR (no event
+    runs, so the model is the one the report rendered). Returns kernels A
+    and B's launches in these paths."""
+    from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch.bench_frame import write_n3v_scene
+    from ex4dgs_tpu_torch.data.readers import read_n3v_scene
+    from ex4dgs_tpu_torch.data.scene import Scene
+    from ex4dgs_tpu_torch.eval.render_sets import render_set
+    from ex4dgs_tpu_torch.models.config import ModelConfig, OptimizationConfig
+    from ex4dgs_tpu_torch.rendering import render
+    from ex4dgs_tpu_torch.train.trainer import Trainer
+    from ex4dgs_tpu_torch.viewer import NetworkViewer
+
+    cam = scene.sampled_test_cameras()[0]
+    rc = cam.render_camera(dev)
+    view, proj = rc.view.cpu().numpy(), rc.proj.cpu().numpy()
+    bg = torch.zeros(3, device=dev)
+    served = []
+
+    def render_fn(req):
+        served.append(req)
+        return render(req.camera, model, cfg, t=req.timestamp, bg=bg, capacity=capacity,
+                      scaling_modifier=req.scaling_modifier, track_idx=False,
+                      device=dev).render
+
+    frame_bytes = cam.width * cam.height * 3
+    messages = [wire_message(view, proj, cam.width, cam.height, cam.fovx, cam.fovy, t)
+                for t in VIEWER_TIMESTAMPS]
+    messages.append(wire_message(view, proj, 0, 0, cam.fovx, cam.fovy, 0.0))  # keep-alive
+    with torch.no_grad():
+        render(rc, model, cfg, t=0.0, bg=bg, capacity=capacity, track_idx=False,
+               device=dev)  # warm-up, before the counters are set to 0
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        replies = serve(NetworkViewer(port=0, device=dev), render_fn, messages,
+                        [frame_bytes] * len(VIEWER_TIMESTAMPS) + [0], cfg.source_path)
+        torch.cuda.synchronize()
+        launched = dict(kernels.launches)
+        same = [img == NetworkViewer.to_bytes(render(
+            req.camera, model, cfg, t=req.timestamp, bg=bg, capacity=capacity,
+            track_idx=False, device=dev).render)
+            for req, (img, _, _) in zip(served, replies)]
+    cam_err = max(float((served[0].camera.view - rc.view).abs().max()),
+                  float((served[0].camera.campos - rc.campos).abs().max()))
+    log(f"# viewer: {len(VIEWER_TIMESTAMPS)} requests for {cam.image_name} at {cam.width}x"
+        f"{cam.height}, t = {VIEWER_TIMESTAMPS}, and a keep-alive; round trip ms "
+        + ", ".join(f"{ms:.2f}" for _, _, ms in replies[:-1])
+        + f" (keep-alive {replies[-1][2]:.2f}); replies bit-equal to the converted render "
+        f"{same}; launches {launched}; the request's camera against the scene's: "
+        f"{cam_err:.3g}; {card}")
+    n = len(VIEWER_TIMESTAMPS)
+    if not (all(same) and len(served) == n and replies[-1][0] is None
+            and all(v == cfg.source_path.encode() for _, v, _ in replies)
+            and launched == {**dict.fromkeys(launched, 0), "composite_fwd": n}
+            and cam_err <= 1e-5):
+        fail("viewer: a reply differs from the render, or the launches are not one per "
+             "non-empty request")
+
+    # the Trainer serving the viewer on the card (tests/test_torch_viewer.py's case)
+    with tempfile.TemporaryDirectory(prefix="ex4dgs_gui_") as root:
+        write_n3v_scene(root, n_cams=3, n_frames=2, n_points=120, width=640, height=480, seed=2)
+        cfg_s = ModelConfig(source_path=root, loader="neural3dvideo", resolution=8, duration=-1,
+                            time_interval=2, time_pad=1, start_duration=2, near=0.05, far=50.0)
+        opt = OptimizationConfig(iterations=3, densify_from_iter=1000, extract_from_iter=1000,
+                                 densify_until_iter=0, prune_invisible_interval=100000,
+                                 random_background=False)
+        gui = NetworkViewer(port=0, device=dev)
+        tr = Trainer(cfg_s, opt, Scene(cfg_s, scene_info=read_n3v_scene(root, cfg_s)),
+                     capacity=65536, test_iterations=(3,), gui=gui, device=dev)
+        port = gui.init()
+        result = {}
+
+        def client():
+            import socket
+
+            with socket.create_connection(("127.0.0.1", port), timeout=120) as s:
+                s.sendall(wire_message(view, proj, 32, 24, cam.fovx, cam.fovy, 1.0, train=True))
+                result["img"] = recv_exact(s, 32 * 24 * 3)
+                result["verify"] = recv_exact(s, int.from_bytes(recv_exact(s, 4), "little"))
+
+        import threading
+
+        th = threading.Thread(target=client)
+        kernels.reset_launches()
+        th.start()
+        metrics = tr.train(iterations=3)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        th.join(timeout=30)
+        (_, report), = metrics["test_reports"]
+        timings = {}
+        kernels.reset_launches()
+        evaluated = render_set(tr.model, cfg_s, tr.scene, "test", measure_fps=False,
+                               lpips_nets=(), timings=timings, device=dev)
+        torch.cuda.synchronize()
+        eval_counts = dict(kernels.launches)
+        tr.close()
+        gui.close()
+    want = tr.steps + tr.gui_renders + tr.test_renders
+    log(f"# viewer served by the tiny scene's Trainer on the card: {tr.gui_renders} request in "
+        f"{tr.steps} steps, launches {counts} (A = steps + requests + {tr.test_renders} test "
+        f"renders = {want}), reply {len(result.get('img', b''))} bytes; render_set on its model "
+        f"PSNR {evaluated.get('psnr')!r} over {evaluated['n_frames']} frames, the test report "
+        f"{report['psnr']!r} over {report['n_frames']} (<= 1e-3 dB), launches {eval_counts}")
+    if not (not th.is_alive() and tr.gui_renders == 1 and result.get("verify") == root.encode()
+            and counts == {**dict.fromkeys(counts, 0), "composite_fwd": want,
+                           "composite_bwd": 3}):
+        fail("the Trainer did not serve the viewer once during its 3 iterations")
+    implied = evaluated["n_frames"] + timings["overflow_retries"]
+    if not (evaluated["n_frames"] == report["n_frames"] > 0
+            and abs(evaluated["psnr"] - report["psnr"]) <= 1e-3
+            and eval_counts == {**dict.fromkeys(eval_counts, 0), "composite_fwd": implied}):
+        fail("render_set disagrees with the trainer's test report on the same model")
+    return (n + counts["composite_fwd"] + eval_counts["composite_fwd"],
+            counts["composite_bwd"])
+
+
+def surface_check(dev, card: str) -> int:
+    """13.4: the quality probe's surface scene and rig
+    (tools/tpu_probes/_tpu_quality2.py:52-57) rendered on the card at
+    t = 0 and 4 from every camera; one camera against the CPU's plain
+    render. Returns kernel A's launches."""
+    from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch.models.config import ModelConfig
+    from ex4dgs_tpu_torch.models.state import model_from_numpy, model_to_numpy
+    from ex4dgs_tpu_torch.rendering import RenderCamera, render
+    from ex4dgs_tpu_torch.synthetic import make_surface_scene, rig_cameras
+
+    cfg = ModelConfig(time_interval=2, time_pad=1, start_duration=2, duration=8, near=0.2,
+                      far=50.0, resolution=1)
+    t0 = time.perf_counter()
+    model, _ = make_surface_scene(n_static=50_000, n_dynamic=5_000, duration=8.0, seed=7,
+                                  static_capacity=65_536, dynamic_capacity=8_192, cfg=cfg,
+                                  device=dev)
+    cams = rig_cameras(SURFACE_CAMS, 3.0, SURFACE_W, SURFACE_H, far=cfg.far, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    capacity = 1024 * 1024  # the probe's
+
+    def frame(c, t, d=dev, m=model):
+        return render(c, m, cfg, t=t, bg=torch.zeros(3, device=d), capacity=capacity,
+                      device=d)
+
+    with torch.no_grad():
+        frame(cams[0], 0.0)  # warm-up, before the counters are set to 0
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        stats = []
+        for c in cams:
+            i0, i4 = frame(c, 0.0), frame(c, 4.0)
+            stats.append((bool(torch.isfinite(i0.render).all() and torch.isfinite(i4.render).all()),
+                          float(i0.render.mean()), float(i4.render.mean()),
+                          float((i0.render - i4.render).abs().max()),
+                          max(int(i0.binning_total), int(i4.binning_total))))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (2 * len(cams))
+        launched = dict(kernels.launches)
+        g = frame(cams[0], 4.0).render.cpu()
+        cpu_model = model_from_numpy(**model_to_numpy(model), device="cpu")
+        c0 = cams[0]
+        cpu_cam = RenderCamera(view=c0.view.cpu(), proj=c0.proj.cpu(), campos=c0.campos.cpu(),
+                               width=c0.width, height=c0.height, tan_fovx=c0.tan_fovx.cpu(),
+                               tan_fovy=c0.tan_fovy.cpu())
+        t1 = time.perf_counter()
+        c = frame(cpu_cam, 4.0, "cpu", cpu_model).render
+        cpu_s = time.perf_counter() - t1
+    err = float((g - c).abs().max())
+    moved = sum(s[3] > 0.1 for s in stats)
+    log(f"# surface scene (50000 static + 5000 dynamic, seed 7, {SURFACE_CAMS} rig cameras at "
+        f"{SURFACE_W}x{SURFACE_H}, built in {build_s:.1f} s): {2 * len(cams)} renders at t = 0 "
+        f"and 4, {ms:.2f} ms each (host clock, no sync per frame); mean image "
+        f"{min(s[1] for s in stats):.3f}-{max(s[1] for s in stats):.3f} (> 0.05), max |t4 - t0| "
+        f"{max(s[3] for s in stats):.3f} (> 0.1 on {moved} of {len(cams)} cameras), most "
+        f"instances {max(s[4] for s in stats)} (capacity {capacity}); launches {launched}; "
+        f"camera 0 at t = 4 against the CPU plain render ({cpu_s:.1f} s): {err:.3g} "
+        f"(atol {IMAGE_TOL:g}); {card}")
+    if not (all(s[0] and s[1] > 0.05 and s[2] > 0.05 and s[4] <= capacity for s in stats)
+            and moved > 0 and err <= IMAGE_TOL
+            and launched == {**dict.fromkeys(launched, 0), "composite_fwd": 2 * len(cams)}):
+        fail("surface scene: a render is not finite or not visible, the dynamics did not move "
+             "the image, the card disagrees with the CPU, or the launches are not one per "
+             "render")
+    return launched["composite_fwd"]
+
+
+def eval_phase(dev, model_dir: str, trained: dict, fps_phase4: dict, card: str) -> dict:
+    """Phase 13: the render CLI, LPIPS on the card against the CPU, the
+    viewer, and the surface scene. Returns kernels A and B's launches on
+    these paths."""
+    from ex4dgs_tpu_torch.data.scene import load_image
+    from ex4dgs_tpu_torch.rendering import render
+
+    model, cfg, scene = load_trained(dev, model_dir, EVAL_ITERATION)
+    with tempfile.TemporaryDirectory(prefix="ex4dgs_lpips_") as wdir:
+        for i, net in enumerate(("alex", "vgg")):
+            np.savez(os.path.join(wdir, f"lpips_{net}.npz"), **lpips_random_weights(net, 100 + i))
+        eval_launches = eval_cli_check(model_dir, trained, scene, fps_phase4, wdir, card)
+        cam = scene.sampled_test_cameras()[0]
+        with torch.no_grad():
+            img = render(cam.render_camera(dev), model, cfg, t=cam.timestamp,
+                         bg=torch.zeros(3, device=dev), capacity=trained["capacity"],
+                         device=dev).render.clamp(0, 1)
+        gt = torch.from_numpy(load_image(cam.image_path, (cam.width, cam.height),
+                                         cam.im_scale)).to(dev)
+        os.environ["EX4DGS_LPIPS_WEIGHTS"] = wdir
+        try:
+            lpips_errs = lpips_card_check(dev, img, gt, card)
+        finally:
+            del os.environ["EX4DGS_LPIPS_WEIGHTS"]
+    viewer_a, viewer_b = viewer_check(dev, model, cfg, scene, trained["capacity"], card)
+    del model
+    torch.cuda.empty_cache()
+    surface_a = surface_check(dev, card)
+    return {"composite_fwd": {"eval_launches": eval_launches, "viewer_launches": viewer_a,
+                              "surface_launches": surface_a,
+                              "lpips_rel_err": lpips_errs},
+            "composite_bwd": {"viewer_launches": viewer_b}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -1114,6 +1593,13 @@ def main() -> int:
     log(f"# card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    phase_s, clock = [], [time.perf_counter()]
+
+    def phase_done(n: int) -> None:
+        now = time.perf_counter()
+        phase_s.append((n, now - clock[0]))
+        clock[0] = now
+
     # -- 1. build --------------------------------------------------------
     t0 = time.perf_counter()
     kernels.load_all()
@@ -1123,6 +1609,7 @@ def main() -> int:
         for line in text.strip().splitlines():
             log(f"#   {name}: {line.strip()}")
 
+    phase_done(1)
     # -- 2. scene --------------------------------------------------------
     t0 = time.perf_counter()
     scene = bench_scene(dev)
@@ -1135,6 +1622,7 @@ def main() -> int:
         f"{total} instances at t=1 (capacity {capacity}), built in "
         f"{time.perf_counter() - t0:.2f} s")
 
+    phase_done(2)
     # -- 3. forward kernel vs plain ------------------------------------
     tx, ty = 32, 16
     data, gid, starts, stops, gx, n_points = pack_frame(scene, tx, ty)
@@ -1179,6 +1667,7 @@ def main() -> int:
     if ms < bound_ms:
         fail(f"composite_fwd read {ms:.4f} ms, below its bound {bound_ms:.4f} ms")
 
+    phase_done(3)
     # -- 4. render path ----------------------------------------------------
     def frame(t, track_idx):
         return render(cam, model, cfg, t=t, bg=bg, capacity=capacity, track_idx=track_idx,
@@ -1236,6 +1725,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     report_profile("render t=1 track_idx=True", lambda: frame(1.0, True), card)
 
+    phase_done(4)
     # -- 5. backward kernel vs plain -------------------------------------
     gacc, acdot, gend = cotangents(acc_k)
     bargs = (data, starts, stops, gacc, acdot, gend, tf_k)
@@ -1279,6 +1769,7 @@ def main() -> int:
         fail(f"composite_bwd read {ms_b:.4f} ms, below its bound {bound_b:.4f} ms")
     del bargs, gacc, gend, acdot, d_k, acc_k, tf_k, idx_k, data, gid
 
+    phase_done(5)
     # -- 6. training path ------------------------------------------------
     statics = StepStatics(cfg=cfg, opt=OptimizationConfig(), spatial_lr_scale=3.0,
                           capacity=capacity)
@@ -1317,6 +1808,7 @@ def main() -> int:
     if not losses[-1] < losses[0]:
         fail("the training loss did not fall")
 
+    phase_done(6)
     # -- 7. determinism ------------------------------------------------------
     a = step(m, st, 1.0)
     b = step(m, st, 1.0)
@@ -1329,6 +1821,7 @@ def main() -> int:
         fail("two train steps from the same state differ")
     del a, b
 
+    phase_done(7)
     # -- 8. timing -----------------------------------------------------------
     def tick(i):
         return step(model, state, float(i % 5))
@@ -1350,6 +1843,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     report_profile("train step t=1", lambda: tick(1), card)
 
+    phase_done(8)
     # -- 9. reference on a small input ------------------------------------
     small, small_train = {}, {}
     gt_small = torch.as_tensor(np.random.default_rng(0).uniform(size=(96, 160, 3))
@@ -1384,11 +1878,20 @@ def main() -> int:
     if not (loss_rel <= 1e-5 and param_err <= 1e-6 and mu_rel <= 1e-3):
         fail("the card's train step on the small scene disagrees with the CPU's")
 
+    phase_done(9)
     probe_entries = probe_phase(dev, starts, stops, card)
+    phase_done(10)
     sub = subpixel_phase(dev, scene, bg, pairs, card)
+    phase_done(11)
     del scene, model, state, m, st, out
     torch.cuda.empty_cache()
-    trainer = trainer_phase(dev, card)
+    with tempfile.TemporaryDirectory(prefix="ex4dgs_phase12_") as tmp:
+        trainer, model_dir, trained = trainer_phase(dev, card, tmp)
+        phase_done(12)
+        evaluation = eval_phase(dev, model_dir, trained, fps, card)
+        phase_done(13)
+    log("# phase times (s): " + ", ".join(f"{n} {t:.1f}" for n, t in phase_s)
+        + f"; total {sum(t for _, t in phase_s):.1f}")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -1398,8 +1901,12 @@ def main() -> int:
         "replaces": "ex4dgs_tpu/ops/rasterize_pallas.py:439",
         "launches": (render_launches["composite_fwd"] + train_launches["composite_fwd"]
                      + sub["composite_fwd"]["subpixel_launches"]
-                     + trainer["composite_fwd"]["trainer_launches"]),
+                     + trainer["composite_fwd"]["trainer_launches"]
+                     + evaluation["composite_fwd"]["eval_launches"]
+                     + evaluation["composite_fwd"]["viewer_launches"]
+                     + evaluation["composite_fwd"]["surface_launches"]),
         **trainer["composite_fwd"],
+        **evaluation["composite_fwd"],
         "max_abs_err": err_fwd,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1413,8 +1920,10 @@ def main() -> int:
         "source": "ex4dgs_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "ex4dgs_tpu/ops/rasterize_pallas.py:713",
         "launches": (train_launches["composite_bwd"] + sub["composite_bwd"]["subpixel_launches"]
-                     + trainer["composite_bwd"]["trainer_launches"]),
+                     + trainer["composite_bwd"]["trainer_launches"]
+                     + evaluation["composite_bwd"]["viewer_launches"]),
         **trainer["composite_bwd"],
+        **evaluation["composite_bwd"],
         "max_abs_err": err_bwd,
         "ms": ms_b,
         "plain_ms": plain_ms_b,

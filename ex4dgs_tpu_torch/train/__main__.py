@@ -16,8 +16,12 @@ the losses, event counts and times, n_static/n_dynamic after each event,
 the GT cache's hits and bytes, the kernels' launch counts and the host
 clock per iteration.
 
-Not here yet: the JAX CLI's mesh, multi-host, backend, debug-snapshot and
-live-viewer flags.
+--port N (with --ip, default 127.0.0.1) serves the live SIBR viewer
+(`viewer.NetworkViewer`) between steps; 0, the default, disables it.
+--debug writes `debug/nan_snapshot_N.npz` under the model path when a step
+produces NaNs.
+
+Not here yet: the JAX CLI's mesh, multi-host and backend flags.
 """
 from __future__ import annotations
 
@@ -50,6 +54,12 @@ def parse_args(argv=None):
     # reference flag alias: checkpoints save alongside PLYs in Trainer.save
     parser.add_argument("--checkpoint_iterations", type=int, nargs="*", default=[])
     parser.add_argument("--test_iterations", type=int, nargs="*", default=[])
+    parser.add_argument("--ip", type=str, default="127.0.0.1",
+                        help="live SIBR viewer listen address (train.py:377)")
+    parser.add_argument("--port", type=int, default=0,
+                        help="live viewer port; 0 disables the viewer (reference default 6009)")
+    parser.add_argument("--debug", action="store_true",
+                        help="dump a state snapshot when a step produces NaNs")
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default=None,
@@ -94,10 +104,25 @@ def main(argv=None) -> int:
         if "kernel_config" in extra:
             kernel = KernelConfig.from_dict(json.loads(str(extra["kernel_config"])))
 
+    gui = None
+    if args.port:
+        from ..viewer import NetworkViewer
+
+        gui = NetworkViewer(args.ip, args.port, device=dev)
+        try:
+            print(f"viewer listening on {args.ip}:{gui.init()}", flush=True)
+        except OSError as e:
+            print(f"viewer disabled: {e}", flush=True)
+            gui.close()
+            gui = None
+
     kernels.reset_launches()
     t0 = time.perf_counter()
     trainer = Trainer(cfg, opt, scene, model=model, opt_state=opt_state, seed=args.seed,
-                      test_iterations=tuple(args.test_iterations), kernel=kernel, device=dev)
+                      test_iterations=tuple(args.test_iterations), kernel=kernel,
+                      debug_snapshot_dir=(os.path.join(model_path, "debug")
+                                          if args.debug else None),
+                      gui=gui, device=dev)
     init_s = time.perf_counter() - t0
     if args.start_checkpoint:
         trainer.iteration = start_it
@@ -130,6 +155,8 @@ def main(argv=None) -> int:
                     "decode_ms": cache.decode_ms, "upload_ms": cache.upload_ms}
     finally:
         trainer.close()
+        if gui is not None:
+            gui.close()
 
     iter_ms = [ms for r in runs for ms in r["iter_ms"]]
     first = trainer.iteration - len(iter_ms) + 1
@@ -157,6 +184,7 @@ def main(argv=None) -> int:
         "steps": trainer.steps,
         "overflow_retries": trainer.overflow_count,
         "test_renders": trainer.test_renders,
+        "gui_renders": trainer.gui_renders,
         "capacity": trainer.capacity,
         "gt_cache": gt_cache,
         "kernel_launches": dict(kernels.launches),

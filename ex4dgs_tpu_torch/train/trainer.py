@@ -96,13 +96,13 @@ class Trainer:
     event's transfers), `event_log` ((iteration, kind, n_static,
     n_dynamic) after each event), `overflow_count` (retries after a binning
     overflow), `test_renders` and `steps` (train_step calls, retries
-    included)."""
+    included), `gui_renders` (viewer requests served)."""
 
     def __init__(self, cfg: ModelConfig, opt: OptimizationConfig, scene: Scene,
                  model: GaussianModel | None = None, opt_state: RAdamState | None = None,
                  seed: int = 0, capacity: int | None = None,
                  test_iterations: tuple = (), kernel: KernelConfig | None = None,
-                 device=None):
+                 debug_snapshot_dir: str | None = None, gui=None, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.opt = opt
@@ -127,9 +127,14 @@ class Trainer:
         n_pts = model.static_capacity + model.dynamic_capacity
         self.capacity = capacity or default_capacity(n_pts, w, h, self.kernel)
         self.test_iterations = set(test_iterations)
+        self.debug_snapshot_dir = debug_snapshot_dir
+        # Optional live network viewer (viewer.NetworkViewer), polled before
+        # every step like the reference's network_gui hook (train.py:93-106).
+        self.gui = gui
 
         self.overflow_count = 0
         self.test_renders = 0
+        self.gui_renders = 0
         self.steps = 0
         self.event_counts: dict[str, int] = {}
         self.event_ms: dict[str, list[float]] = {}
@@ -232,6 +237,11 @@ class Trainer:
             self.iteration += 1
             it = self.iteration
 
+            if self.gui is not None:
+                # serve viewer requests between steps (train.py:93-106)
+                self.gui.poll(self._gui_render, cfg.source_path or "",
+                              training_active=self.iteration < iterations)
+
             if it % 1000 == 0:
                 self.model = oneup_sh_degree(self.model, cfg.sh_degree)
 
@@ -298,6 +308,7 @@ class Trainer:
             # the NaN flag of this iteration's update, read now (no lag)
             ran = []
             if bool(out.nan_flag):
+                self._dump_debug_snapshot()
                 self._host_event("prune_nan", D.prune_nan)
                 ran.append("prune_nan")
 
@@ -413,6 +424,37 @@ class Trainer:
                 self.test_renders += 1
                 vals.append(float(psnr_fn(torch.clamp(img, 0, 1), gt)))
         return {"n_frames": len(vals), "psnr": float(np.mean(vals))}
+
+    def _dump_debug_snapshot(self) -> None:
+        """Arg-dump-on-failure (the reference's debug snapshot,
+        diff_gaussian_rasterization_df/__init__.py:92-99,152-159): when a
+        step produced NaNs, the full pre-prune parameters and the camera
+        that triggered it go to `nan_snapshot_<iteration>.npz` in
+        `debug_snapshot_dir`, with the JAX trainer's keys."""
+        if not self.debug_snapshot_dir:
+            return
+        os.makedirs(self.debug_snapshot_dir, exist_ok=True)
+        payload = {f"param:{k}": v.detach().cpu().numpy() for k, v in self.model.params.items()}
+        payload["iteration"] = np.asarray(self.iteration)
+        if self.last_cam is not None:
+            rc = self.last_cam.render_camera(self.device)
+            payload["cam_view"] = rc.view.cpu().numpy()
+            payload["cam_proj"] = rc.proj.cpu().numpy()
+            payload["cam_timestamp"] = np.asarray(self.last_cam.timestamp)
+        path = os.path.join(self.debug_snapshot_dir, f"nan_snapshot_{self.iteration}.npz")
+        np.savez(path, **payload)
+        print(f"[debug] NaN detected; state dumped to {path}", flush=True)
+
+    def _gui_render(self, req) -> torch.Tensor:
+        """The live model for a viewer request (network_gui analog: the
+        viewer drives the timestamp and the scaling modifier)."""
+        self.gui_renders += 1
+        with torch.no_grad():
+            return render(req.camera, self.model, self.cfg, t=req.timestamp,
+                          bg=torch.zeros(3, device=self.device), capacity=self.capacity,
+                          scaling_modifier=req.scaling_modifier, kernel_cfg=self.kernel,
+                          # the wire carries RGB only: no dominant-index bookkeeping
+                          track_idx=False, device=self.device).render
 
     # ------------------------------------------------------------------
     def save(self, model_path: str, iteration: int | None = None) -> D.HostModel:

@@ -7,14 +7,17 @@ kernel wrapper accepts.
   port and finds neither module loaded).
 - The entry points put their tensors on `cuda` unless given `device="cpu"`,
   and raise where there is no CUDA device; they never fall back to the CPU.
-  The training CLI without --device raises before it reads anything.
+  The training and render CLIs without --device raise before they read
+  anything.
 - `ex4dgs_tpu_torch.kernels` imports where there is no nvcc and no GPU, and
   its wrapper refuses what the kernel does not take before anything is
   built.
 """
 import ast
+import json
 import os
 import pathlib
+import socket
 import subprocess
 import sys
 import tempfile
@@ -24,10 +27,12 @@ import numpy as np
 import pytest
 import torch
 
-from ex4dgs_tpu_torch import bench_frame, kernels, rendering, synthetic
+from ex4dgs_tpu_torch import bench_frame, compat, kernels, render_cli, rendering, synthetic
+from ex4dgs_tpu_torch import viewer as viewer_mod
 from ex4dgs_tpu_torch.data import readers
 from ex4dgs_tpu_torch.data.cameras import CameraInfo, camera_from_info
 from ex4dgs_tpu_torch.data.scene import ImagePrefetcher, Scene
+from ex4dgs_tpu_torch.eval import metrics, render_sets
 from ex4dgs_tpu_torch.kernel_config import KernelConfig
 from ex4dgs_tpu_torch.models import density, optimizer, state
 from ex4dgs_tpu_torch.models.config import ModelConfig, OptimizationConfig
@@ -51,7 +56,9 @@ def test_the_scan_covers_the_training_entry_point():
     names = {str(f.relative_to(ROOT)) for f in _port_files()}
     for path in ("train/__main__.py", "train/trainer.py", "models/density.py", "data/scene.py",
                  "data/readers.py", "data/cameras.py", "data/colmap.py", "io/checkpoint.py",
-                 "io/model_ply.py", "io/ply.py"):
+                 "io/model_ply.py", "io/ply.py", "render_cli.py", "eval/render_sets.py",
+                 "eval/metrics.py", "eval/lpips.py", "viewer.py", "compat.py",
+                 "runtime/profiling.py", "synthetic.py"):
         assert f"ex4dgs_tpu_torch/{path}" in names, path
 
 
@@ -82,6 +89,9 @@ def test_port_loads_without_jax_in_a_fresh_interpreter():
         "import ex4dgs_tpu_torch.probes.outspec, ex4dgs_tpu_torch.train.trainer\n"
         "import ex4dgs_tpu_torch.train.__main__, ex4dgs_tpu_torch.models.density\n"
         "import ex4dgs_tpu_torch.data.scene, ex4dgs_tpu_torch.io.checkpoint\n"
+        "import ex4dgs_tpu_torch.render_cli, ex4dgs_tpu_torch.eval.render_sets\n"
+        "import ex4dgs_tpu_torch.eval.metrics, ex4dgs_tpu_torch.eval.lpips\n"
+        "import ex4dgs_tpu_torch.viewer, ex4dgs_tpu_torch.compat, ex4dgs_tpu_torch.runtime\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not loaded, loaded\n"
@@ -166,6 +176,47 @@ def _call(entry, device, model, cfg, cam):
                     "--time_interval", "1", "--time_pad", "1"]
             rc = train_cli.main(argv + (["--device", device] if device else []))
             return rc, os.path.exists(os.path.join(root, "out", "chkpnt1.npz"))
+    if entry == "make_surface_scene":
+        return synthetic.make_surface_scene(n_static=60, n_dynamic=6, **kw)
+    if entry == "rig_cameras":
+        return synthetic.rig_cameras(2, 3.0, 64, 32, **kw)
+    if entry == "CGaussianModel":
+        gm = compat.CGaussianModel(sh_degree=3, duration=4, interval=2, **kw)
+        rng = np.random.default_rng(0)
+        return gm.create_from_pcd(rng.normal(size=(20, 3)), rng.uniform(size=(20, 3)), 1.0)
+    if entry == "LPIPS":
+        return metrics.LPIPS("alex", **kw)
+    if entry == "viewer_receive":
+        v = viewer_mod.NetworkViewer(port=0, **kw)
+        a, b = socket.socketpair()
+        try:
+            v.conn = a
+            msg = json.dumps({"resolution_x": 64, "resolution_y": 32, "train": False,
+                              "fov_x": 1.0, "fov_y": 0.6, "shs_python": False,
+                              "rot_scale_python": False, "keep_alive": False,
+                              "scaling_modifier": 1.0, "view_matrix": np.eye(4).ravel().tolist(),
+                              "view_projection_matrix": np.eye(4).ravel().tolist()}).encode()
+            b.sendall(len(msg).to_bytes(4, "little") + msg)
+            return v.receive()
+        finally:
+            a.close()
+            b.close()
+            v.close()
+    if entry in ("render_set", "render_cli"):
+        with tempfile.TemporaryDirectory() as root:
+            bench_frame.write_n3v_scene(root, n_cams=2, n_frames=2, n_points=40, width=64,
+                                        height=48)
+            out = os.path.join(root, "out")
+            train_cli.main(["--source_path", root, "--model_path", out, "--iterations", "1",
+                            "--quiet", "--start_duration", "1", "--time_interval", "1",
+                            "--time_pad", "1", "--device", "cpu"])
+            if entry == "render_cli":
+                return render_cli.main(["--model_path", out, "--skip_train", "--fps_inner", "3"]
+                                       + (["--device", device] if device else []))
+            cfg = ModelConfig(source_path=root, model_path=out, time_interval=1, time_pad=1,
+                              start_duration=1)
+            return render_sets.render_set(model, cfg, Scene(cfg), "test", measure_fps=False,
+                                          **kw)
     raise AssertionError(entry)
 
 
@@ -188,7 +239,9 @@ def _memory_scene(cfg):
 ENTRIES = ("make_scene", "ring_cameras", "lookat_camera", "empty_model", "model_from_numpy",
            "camera_from_numpy", "render", "render_points", "init_state", "train_step",
            "probe_unaligned_main", "probe_outspec_main", "probe_make_src", "push",
-           "render_camera", "prefetcher_cache", "trainer", "train_cli")
+           "render_camera", "prefetcher_cache", "trainer", "train_cli", "render_set",
+           "render_cli", "LPIPS", "viewer_receive", "make_surface_scene", "rig_cameras",
+           "CGaussianModel")
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -216,6 +269,20 @@ def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry):
         out.close()
     if entry == "train_cli":
         assert out == (0, True)
+    if entry == "render_set":
+        assert out["n_frames"] > 0 and np.isfinite(out["psnr"])
+    if entry == "render_cli":
+        assert out["test"]["n_frames"] > 0 and out["test"]["fps"] > 0
+    if entry == "LPIPS":
+        assert out.device.type == "cpu"
+    if entry == "viewer_receive":
+        assert out.camera.view.device.type == "cpu" and out.camera.width == 64
+    if entry == "make_surface_scene":
+        assert out[0].device.type == "cpu" and int(out[0].n_dynamic()) == 6
+    if entry == "rig_cameras":
+        assert out[0].view.device.type == "cpu"
+    if entry == "CGaussianModel":
+        assert out.model.device.type == "cpu"
 
 
 def test_bench_scene_needs_cuda_unless_told_cpu(no_cuda):
