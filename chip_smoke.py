@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's render, training, eval and viewer paths on one
-NVIDIA GPU and check them.
+"""Drive the PyTorch/CUDA port's render, training, eval, viewer and quality
+paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -109,7 +109,8 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    trainer's pull at save (sha256 of every array). Printed: ms/iteration by
    the host clock (whole loop, and without the event iterations), each
    event's time, pull and push times, n_static/n_dynamic after each event,
-   the GT cache's hits and bytes; the events the schedule does not reach
+   the GT cache's decoder (the native libpng pool, or PIL where it does not
+   build), hits and bytes; the events the schedule does not reach
    before iteration 3000 (prune_invisible, prune_small) or at all
    (prune_nan, reset_opacity) are timed on the saved model. Last, the
    trainer on a tiny scene on the card and on the CPU for the 20
@@ -137,7 +138,35 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    Trainer serving one request during 3 iterations; and the quality
    probe's surface scene (50k + 5k splats, seed 7) from its 19-camera rig
    at 800x600, t = 0 and 4: finite, visible, moving, one launch per render,
-   one camera equal to the CPU's plain render within 3e-5.
+   one camera equal to the CPU's plain render within 3e-5. (The tiny
+   scene's trainer decodes with PIL there, as render_set does: its default
+   native pool box-filters the resampled frames.)
+14. quality run: `python -m ex4dgs_tpu_torch.quality`'s `run` at its
+   defaults, the port of tools/tpu_probes/_tpu_quality2.py: the surface
+   scene (50k + 5k splats, seed 7) from the 19-camera rig at 800x600, its
+   152 ground-truth frames rendered here, the full schedule, 3000
+   iterations, camera 0 held out. Printed beside the JAX package's anchors
+   (BASELINE.md, strict dots: 33.53 dB, SSIM 0.978, the per-timestamp
+   PSNRs, 31.2 dB at 250 and 33.85 at 2500, 52.6k static and 5.9k dynamic):
+   the SUMMARY, the PSNR per timestamp, the trajectory, the final cloud,
+   the wall time, the host-clock ms per iteration with and without the
+   event iterations, and the render FPS at the snug capacity. It fails on
+   a held-out PSNR below 32.53 dB (33.53 less BASELINE.md's +-1 dB
+   trajectory noise), an SSIM below 0.968, a non-finite loss, or kernel
+   launches other than the run implies (A: ground truth, steps with their
+   overflow retries, test renders, 8 held-out renders, 1 probe and 550 FPS
+   renders; B: one per iteration). Kernels A and B are then held against
+   their plain versions on one training view of the trained model, as
+   phase 12 holds them.
+15. tight cull: the bench frame with KernelConfig.tight_cull off and on,
+   the launch counters set to 0 before and read after: render image,
+   depth, acc, flow and dominant index bit-equal (track_idx on, without and
+   with the bench offsets), the gradients of an L1 loss through a render
+   and one train_step's parameters and moments bit-equal, every culled
+   pair's largest alpha over its tile's pixels (and over them moved by the
+   bench offsets) below 1/255 by the plain version's arithmetic. Printed:
+   the pairs in the tile ranges off and on, kernels A and B in turns on the
+   two packed frames, and the bin and pack device ms.
 
 The lines before the last are the card's name and power limit (as
 nvidia-smi prints them) and a JSON object with one entry per kernel; the
@@ -868,8 +897,10 @@ def trainer_report_lines(what: str, report: dict, card: str) -> None:
         f"{loss[w:w + 30].mean():.5f} / {psnr[w:w + 30].mean():.2f} dB (t <= "
         f"{max(report['timestamps'][w:w + 30]):g})" for w in windows))
     gt = report["gt_cache"]
-    log(f"#   GT cache: {gt['hits']} hits, {gt['decodes']} decodes (PIL, mean "
-        f"{statistics.mean(gt['decode_ms'] or [0]):.1f} ms each in a worker thread; upload mean "
+    log(f"#   GT cache: decoder {gt['decoder']} (frames by decoder {gt['decoded']}; native pool "
+        f"missing because: {gt['native_error']}), {gt['hits']} hits, {gt['decodes']} decodes "
+        f"(waited on, mean {statistics.mean(gt['wait_ms'] or [0]):.1f} ms each; PIL decodes in "
+        f"a worker thread, mean {statistics.mean(gt['decode_ms'] or [0]):.1f} ms; upload mean "
         f"{statistics.mean(gt['upload_ms'] or [0]):.2f} ms), {gt['bytes'] / 2**20:.1f} MiB on the "
         f"device; scene read in {report['scene_s']:.2f} s, trainer built (points, KNN scales, "
         f"the first event) in {report['init_s']:.2f} s; save (PLYs, checkpoint, digest) ms "
@@ -877,9 +908,11 @@ def trainer_report_lines(what: str, report: dict, card: str) -> None:
         + f"; test reports {report['test_reports']}")
 
 
-def trainer_kernels_hold(dev, model, cfg, capacity: int, card: str) -> dict:
+def trainer_kernels_hold(dev, model, cfg, capacity: int, card: str, cam=None,
+                         what: str = "trainer path") -> dict:
     """Kernels A and B on the trainer path's own inputs: the saved model
-    (static and dynamic rows) seen by one train camera at its timestamp,
+    (static and dynamic rows) seen by one train camera (`cam`, a data
+    Camera; default the middle one of the config's scene) at its timestamp,
     packed into the trainer's instance capacity at the trainer's tile, each
     kernel against its plain version on those inputs (kernel B with seeded
     cotangents). Kernel A is held as phase 3 holds it. Kernel B is held
@@ -896,8 +929,9 @@ def trainer_kernels_hold(dev, model, cfg, capacity: int, card: str) -> dict:
                                                      composite_tiles_bwd_walk,
                                                      composite_tiles_plain)
 
-    cams = Scene(cfg).train_cameras
-    cam = cams[len(cams) // 2]
+    if cam is None:
+        cams = Scene(cfg).train_cameras
+        cam = cams[len(cams) // 2]
     kcfg = KernelConfig()
     tx, ty = kcfg.tile_x, kcfg.tile_y
     data, gid, starts, stops, gx, n_points = pack_view(
@@ -920,14 +954,14 @@ def trainer_kernels_hold(dev, model, cfg, capacity: int, card: str) -> dict:
     spread = bwd_errors(composite_tiles_bwd_plain(*bargs, chunk=1, **bkw), d_p, lo, hi)
     note_b, ok_b, err_b = bwd_agreement(d_k, d_k2, d_p, twin, lo, hi, spread=spread)
     longest = int((stops - starts).max().item())
-    log(f"# trainer path, saved model through {cam.image_name} at t={cam.timestamp:g} "
+    log(f"# {what}, saved model through {cam.image_name} at t={cam.timestamp:g} "
         f"({cam.width}x{cam.height}, {n_points} rows, {hi - lo} instances in capacity "
         f"{capacity}, tile {tx}x{ty}, longest tile {longest}): composite_fwd vs plain: "
         f"{note_a}; composite_bwd vs plain: {note_b}; the plain version at chunk=1 against "
         f"itself at chunk=64, worst err/limit: "
         + ", ".join(f"{k} {e[1]:.3g}" for k, e in spread.items()) + f"; {card}")
     if not (ok_a and ok_b):
-        fail("a kernel disagrees with its plain version on the trainer path's inputs")
+        fail(f"a kernel disagrees with its plain version on the {what}'s inputs")
     return {"composite_fwd": err_a, "composite_bwd": err_b}
 
 
@@ -1352,12 +1386,14 @@ def viewer_check(dev, model, cfg, scene, capacity: int, card: str) -> tuple[int,
     the loaded model, each reply the converted render of its camera bit for
     bit; then the tiny scene's Trainer serving a request on the card, and
     `render_set` on its model giving its test report's PSNR (no event
-    runs, so the model is the one the report rendered). Returns kernels A
-    and B's launches in these paths."""
+    runs, so the model is the one the report rendered; the trainer decodes
+    its frames with PIL, as render_set does, not with its default native
+    pool, which box-filters the resampled frames). Returns kernels A and
+    B's launches in these paths."""
     from ex4dgs_tpu_torch import kernels
     from ex4dgs_tpu_torch.bench_frame import write_n3v_scene
     from ex4dgs_tpu_torch.data.readers import read_n3v_scene
-    from ex4dgs_tpu_torch.data.scene import Scene
+    from ex4dgs_tpu_torch.data.scene import ImagePrefetcher, Scene
     from ex4dgs_tpu_torch.eval.render_sets import render_set
     from ex4dgs_tpu_torch.models.config import ModelConfig, OptimizationConfig
     from ex4dgs_tpu_torch.rendering import render
@@ -1420,6 +1456,8 @@ def viewer_check(dev, model, cfg, scene, capacity: int, card: str) -> tuple[int,
         gui = NetworkViewer(port=0, device=dev)
         tr = Trainer(cfg_s, opt, Scene(cfg_s, scene_info=read_n3v_scene(root, cfg_s)),
                      capacity=65536, test_iterations=(3,), gui=gui, device=dev)
+        tr.prefetcher.close()
+        tr.prefetcher = ImagePrefetcher(native=False, device=dev)
         port = gui.init()
         result = {}
 
@@ -1569,6 +1607,254 @@ def eval_phase(dev, model_dir: str, trained: dict, fps_phase4: dict, card: str) 
                               "surface_launches": surface_a,
                               "lpips_rel_err": lpips_errs},
             "composite_bwd": {"viewer_launches": viewer_b}}
+
+
+# Phase 14: the quality run (tools/tpu_probes/_tpu_quality2.py) at full
+# width through python -m ex4dgs_tpu_torch.quality's `run`, and the JAX
+# package's anchors on the TPU (BASELINE.md "surface, 19 cams, 3000 iters",
+# strict dots): held-out PSNR and SSIM, per timestamp, the trajectory and
+# the final cloud. These are quality figures; no TPU time is compared.
+JAX_PSNR, JAX_SSIM, PSNR_NOISE = 33.53, 0.978, 1.0
+JAX_PSNR_BY_T = (34.4, 35.1, 35.2, 35.1, 34.9, 33.5, 31.2, 28.9)
+JAX_TRAJECTORY = {250: 31.2, 2500: 33.85}
+JAX_N_STATIC, JAX_N_DYNAMIC = 52_600, 5_900
+SSIM_FLOOR = JAX_SSIM - 0.01
+
+
+def quality_phase(dev, card: str, tmp: str) -> dict:
+    """Phase 14: the surface scene at 800x600 from the 19-camera rig, the
+    full schedule, 3000 iterations (quality.run with its defaults). Fails
+    on a held-out PSNR below JAX's anchor less the trajectory noise, an
+    SSIM below JAX's less 0.01, a non-finite loss, or kernel launches other
+    than the run implies: kernel A once per ground-truth render (19 x 8),
+    per train_step call (iterations and overflow retries), per test render,
+    per held-out render (8), for the probe and for each of the 50 + 500 FPS
+    renders; kernel B once per iteration (an attempt that overflows its
+    capacity launches no B and is re-run). Then kernels A and B against
+    their plain versions on one training view of the trained model
+    (trainer_kernels_hold). Returns A's and B's launches and errors for the
+    kernels line."""
+    from ex4dgs_tpu_torch import kernels, quality
+
+    args = quality.parse_args(["--out", os.path.join(tmp, "quality")])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = quality.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = dict(kernels.launches)
+    s, tr, st = out["summary"], out["trainer"], out["stages"]
+    log("# quality run SUMMARY " + json.dumps(s))
+    pr = quality.PRESETS[args.preset]
+    log(f"# quality run: {args.iters} iterations of the full schedule on {s['n_cams']} "
+        f"cameras at {pr['width']}x{pr['height']} (camera 0 held out): held-out PSNR "
+        f"{s['psnr']:.4f} dB (JAX {JAX_PSNR}, floor {JAX_PSNR - PSNR_NOISE:.2f}), SSIM {s['ssim']:.5f} (JAX {JAX_SSIM}, "
+        f"floor {SSIM_FLOOR:.3f}), skimage SSIM {s['ssim_sk']:.5f}; n_static {s['n_static']} "
+        f"(JAX {JAX_N_STATIC}), n_dynamic {s['n_dynamic']} (JAX {JAX_N_DYNAMIC}); {card}")
+    log("# quality run, held-out PSNR by timestamp (port / JAX): " + ", ".join(
+        f"t={t} {s['psnr_by_t'][str(t)]:.2f} / {j}" for t, j in enumerate(JAX_PSNR_BY_T)))
+    log("# quality run, held-out PSNR trajectory (iteration psnr; JAX 31.2 at 250, 33.85 at "
+        "2500): " + ", ".join(f"{it} {v:.3f}" for it, v in s["test_psnr"]))
+    n_ev = s["event_iterations"]
+    stage_s = ", ".join(f"{k} {v['s']:.1f} s" for k, v in st.items())
+    log(f"# quality run: wall {wall:.1f} s in all ({stage_s}); training {s['train_wall_s']} s, "
+        f"host clock {s['ms_per_iteration']:.3f} ms/iteration, "
+        f"{s['ms_per_iteration_without_events']:.3f} without the {n_ev} event iterations; "
+        f"{tr.steps} train_step calls ({tr.overflow_count} overflow retries, capacity "
+        f"{tr.capacity}), {tr.test_renders} test renders; events {tr.event_counts}; render "
+        f"FPS {s['render_fps']} ({s['render_mpix_s']} Mpix/s) at RCAP {s['render_capacity']}; "
+        f"decoder {s['decoder']}; {card}")
+    log("# quality run, after each event (iteration, kind, n_static, n_dynamic): "
+        + "; ".join(f"{it} {kind} {ns} {nd}" for it, kind, ns, nd in tr.event_log))
+    if s["psnr"] > JAX_PSNR + PSNR_NOISE:
+        log(f"# quality run: held-out PSNR {s['psnr']:.4f} dB is above JAX's anchor plus the "
+            f"noise ({JAX_PSNR + PSNR_NOISE:.2f}); not a failure (PERF.md explains it)")
+    n_gt = s["n_cams"] * quality.N_T
+    want_a = (n_gt + tr.steps + tr.test_renders + quality.N_T + 1
+              + quality.FPS_WARMUP + quality.FPS_RENDERS)
+    want = {**dict.fromkeys(launched, 0), "composite_fwd": want_a,
+            "composite_bwd": tr.steps - tr.overflow_count}
+    log(f"# quality run launches {launched}, the run implies {want} ({n_gt} ground truth + "
+        f"{tr.steps} steps + {tr.test_renders} test + {quality.N_T} held-out + 1 probe + "
+        f"{quality.FPS_WARMUP} + {quality.FPS_RENDERS} FPS renders; B once per iteration); by "
+        f"stage " + json.dumps(s["kernel_launches"]))
+    if not s["loss_finite"]:
+        fail("quality run: a non-finite loss")
+    if launched != want or tr.steps - tr.overflow_count != args.iters:
+        fail("quality run: the kernel launches are not what the run implies")
+    if not (s["psnr"] >= JAX_PSNR - PSNR_NOISE and s["ssim"] >= SSIM_FLOOR):
+        fail(f"quality run: held-out PSNR {s['psnr']:.4f} dB or SSIM {s['ssim']:.5f} below "
+             f"{JAX_PSNR - PSNR_NOISE:.2f} / {SSIM_FLOOR:.3f}")
+    cams = tr.scene.train_cameras
+    errs = trainer_kernels_hold(dev, tr.model, out["cfg"], tr.capacity, card,
+                                cam=cams[len(cams) // 2], what="quality run")
+    return {name: {"quality_launches": launched[name], "quality_max_abs_err": errs[name]}
+            for name in ("composite_fwd", "composite_bwd")} | {
+        "summary": s, "wall_s": wall}
+
+
+def tight_cull_phase(dev, card: str) -> dict:
+    """Phase 15: the tight cull (KernelConfig.tight_cull) on the bench
+    frame. With the cull off and on: render image, depth, acc, flow and
+    dominant index bit-equal (track_idx on, without and with the bench
+    offsets), the gradients of an L1 loss through a render and one
+    train_step's parameters and moments bit-equal; every culled pair's
+    largest alpha over its tile's pixels (and over them moved by the bench
+    offsets), by the plain version's arithmetic, below 1/255. The launch
+    counters are set to 0 before these renders and steps and read after
+    them. Printed: the pairs in the tile ranges with the cull off and on,
+    kernels A and B in turns on the two frames, and the bin and pack
+    device ms. Returns A's and B's launches and times for the kernels
+    line."""
+    from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch.bench_frame import (bench_offsets, bench_scene, cotangents, cuda_ms,
+                                              pack_frame)
+    from ex4dgs_tpu_torch.kernel_config import KernelConfig
+    from ex4dgs_tpu_torch.models.config import OptimizationConfig
+    from ex4dgs_tpu_torch.models.optimizer import init_state
+    from ex4dgs_tpu_torch.models.temporal import point_data_at_t
+    from ex4dgs_tpu_torch.ops.binning import bin_gaussians
+    from ex4dgs_tpu_torch.ops.compositing import ALPHA_MAX, ALPHA_MIN
+    from ex4dgs_tpu_torch.ops.projection import tile_grid
+    from ex4dgs_tpu_torch.ops.rasterize_cuda import pack_sorted, tile_offsets
+    from ex4dgs_tpu_torch.ops.rasterize_tiled import tile_pixels
+    from ex4dgs_tpu_torch.rendering import preprocess_points, render
+    from ex4dgs_tpu_torch.train.step import StepStatics, train_step
+
+    scene = bench_scene(dev)
+    model, cfg, cam, _, capacity = scene
+    kc = {tight: KernelConfig(tight_cull=tight) for tight in (False, True)}
+    bg = torch.zeros(3, device=dev)
+    off_img = bench_offsets(dev)
+    P = model.static_capacity + model.dynamic_capacity
+    gen = torch.Generator(device=dev).manual_seed(5)
+    flow_dirs = torch.randn((P, 3), device=dev, generator=gen) * 0.1
+    gt = torch.rand((cam.height, cam.width, 3), device=dev, generator=gen)
+
+    kernels.reset_launches()
+    same = {}
+    with torch.no_grad():
+        for name, off in (("no offsets", None), ("bench offsets", off_img)):
+            res = {t: render(cam, model, cfg, t=1.0, bg=bg, capacity=capacity,
+                             subpixel_offset=off, flow_dirs=flow_dirs, track_idx=True,
+                             kernel_cfg=kc[t], device=dev) for t in (False, True)}
+            same[name] = {f: torch.equal(getattr(res[False], f), getattr(res[True], f))
+                          for f in ("render", "depth", "acc", "opticalflow", "dominent_idxs",
+                                    "binning_total")}
+    grads = {}
+    for tight in (False, True):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in model.params.items()}
+        r = render(cam, model.replace(params=leaves), cfg, t=1.0, bg=bg, capacity=capacity,
+                   kernel_cfg=kc[tight], device=dev)
+        (r.render - gt).abs().mean().backward()
+        grads[tight] = {k: v.grad for k, v in leaves.items() if v.grad is not None}
+    same_grad = grads[False].keys() == grads[True].keys() and all(
+        torch.equal(grads[False][k], grads[True][k]) for k in grads[False])
+    steps = {}
+    for tight in (False, True):
+        st = StepStatics(cfg=cfg, opt=OptimizationConfig(), spatial_lr_scale=3.0,
+                         capacity=capacity, kernel=kc[tight])
+        steps[tight] = train_step(model, init_state(model.params, device=dev), cam, gt, 1.0, bg,
+                                  100, st, device=dev)
+    a, b = steps[False], steps[True]
+    same_step = (torch.equal(a.loss, b.loss) and all(
+        torch.equal(a.model.params[k], b.model.params[k])
+        and torch.equal(a.opt_state.mu[k], b.opt_state.mu[k])
+        and torch.equal(a.opt_state.nu[k], b.opt_state.nu[k]) for k in a.model.params))
+    torch.cuda.synchronize()
+    launched = dict(kernels.launches)
+    want = {**dict.fromkeys(launched, 0), "composite_fwd": 4 + 2 + 2, "composite_bwd": 2 + 2}
+    nonzero = sum(int((g != 0).any()) for g in grads[False].values())
+    log(f"# tight cull, bench frame at t=1, cull off against on: render, depth, acc, flow, "
+        f"dominant ids bit-equal {same}; gradients of an L1 loss through a render bit-equal "
+        f"{same_grad} ({nonzero} of {len(grads[False])} params with non-zero gradients); one "
+        f"train_step's loss, params and moments bit-equal {same_step}; launches {launched} "
+        f"(4 renders, 2 backward renders, 2 steps: {want})")
+    if not (all(all(v.values()) for v in same.values()) and same_grad and same_step
+            and nonzero > 0):
+        fail("tight cull: the render or the gradients differ with the cull on")
+    if launched != want:
+        fail(f"tight cull: launches {launched}, the path implies {want}")
+    del grads, steps, a, b
+
+    # which pairs the cull drops, and how much alpha they could have had
+    with torch.no_grad():
+        pts = point_data_at_t(model, cfg, 1.0)
+        proj, colors = preprocess_points(pts, cam, cfg, near=cfg.near, far=cfg.far)
+        gx, gy = tile_grid(cam.width, cam.height)
+        T = gx * gy
+        bins = {t: bin_gaussians(proj, gx, gy, capacity, tight_cull=t) for t in (False, True)}
+        n = int(bins[False].total)
+
+        def pair_keys(b):
+            tid, g = b.tile_id[:n].long(), b.order[:n].long()
+            keep = tid < T
+            return g[keep] * T + tid[keep]
+
+        k_off, k_on = pair_keys(bins[False]), pair_keys(bins[True])
+        in_ranges = {t: int((bins[t].tile_stop - bins[t].tile_start).sum()) for t in bins}
+        subset = bool(torch.isin(k_on, k_off).all())
+        culled = k_off[~torch.isin(k_off, k_on)]
+        g_c, t_c = culled // T, culled % T
+        pix = tile_pixels(gx, gy, 32, 16, dev)
+        pix_off = pix + tile_offsets(off_img, gx, gy, 32, 16)
+        opac = proj.opacity * proj.valid
+        amax = {}
+        for name, px in (("pixels", pix), ("offset pixels", pix_off)):
+            best = torch.zeros((), device=dev)
+            for c0 in range(0, culled.numel(), 32768):
+                g, tl = g_c[c0:c0 + 32768], t_c[c0:c0 + 32768]
+                dx = proj.xy[g, 0][:, None] - px[tl, :, 0]
+                dy = proj.xy[g, 1][:, None] - px[tl, :, 1]
+                power = (-0.5 * (proj.conic[g, 0][:, None] * dx * dx
+                                 + proj.conic[g, 2][:, None] * dy * dy)
+                         - proj.conic[g, 1][:, None] * dx * dy)
+                alpha = torch.clamp_max(opac[g][:, None] * torch.exp(torch.clamp_max(power, 0.0)),
+                                        ALPHA_MAX)
+                best = torch.maximum(best, torch.where(power <= 0.0, alpha, 0.0).max())
+            amax[name] = best.item()
+        flow = torch.zeros_like(colors)
+        bin_ms = {t: cuda_ms(lambda t=t: bin_gaussians(proj, gx, gy, capacity, tight_cull=t),
+                             reps=20) for t in (False, True)}
+        pack_ms = {t: cuda_ms(lambda t=t: pack_sorted(proj, colors, flow, bins[t]), reps=20)
+                   for t in (False, True)}
+    frames = {t: pack_frame(scene, tight_cull=t) for t in (False, True)}
+    fw = {t: ((f.data, f.gid, f.starts, f.stops), dict(grid_x=f.grid_x, tile_x=32, tile_y=16,
+                                                     track_idx=True))
+          for t, f in frames.items()}
+    outs = {t: kernels.composite_fwd(*fw[t][0], **fw[t][1]) for t in fw}
+    same_fwd = all(torch.equal(x, y) for x, y in zip(outs[False], outs[True]))
+    gacc, acdot, gend = cotangents(outs[False][0])
+    bw = {t: ((f.data, f.starts, f.stops, gacc, acdot, gend, outs[t][1]),
+              dict(grid_x=f.grid_x, tile_x=32, tile_y=16)) for t, f in frames.items()}
+    a_t = in_turns({f"cull {'on' if t else 'off'}": (lambda t=t: kernels.composite_fwd(
+        *fw[t][0], **fw[t][1])) for t in (False, True)})
+    b_t = in_turns({f"cull {'on' if t else 'off'}": (lambda t=t: kernels.composite_bwd(
+        *bw[t][0], **bw[t][1])) for t in (False, True)})
+    turns = {"A": a_t, "B": b_t}
+    log(f"# tight cull, bench frame at t=1: {in_ranges[False]} instance-tile pairs in the tile "
+        f"ranges with the cull off, {in_ranges[True]} on ({culled.numel()} culled, "
+        f"{100 * culled.numel() / max(in_ranges[False], 1):.2f}%; total {n} either way; on a "
+        f"subset of off {subset}); the culled pairs' largest alpha over their tile's pixels "
+        f"{amax['pixels']:.4g}, over the pixels moved by the bench offsets "
+        f"{amax['offset pixels']:.4g} (below 1/255 = {ALPHA_MIN:.6f}); kernel A outputs on "
+        f"the two packed frames bit-equal {same_fwd}")
+    log("# tight cull, kernels in turns (mean, first turn, second turn; ms): "
+        + "; ".join(f"{k} {n} {v[0]:.4f} ({v[1]:.4f}, {v[2]:.4f})" for k, d in turns.items()
+                    for n, v in d.items())
+        + f"; bin_gaussians device ms off {bin_ms[False]:.4f}, on {bin_ms[True]:.4f}; "
+        f"pack_sorted off {pack_ms[False]:.4f}, on {pack_ms[True]:.4f}; {card}")
+    if not (subset and amax["pixels"] < ALPHA_MIN and amax["offset pixels"] < ALPHA_MIN
+            and same_fwd and in_ranges[True] < in_ranges[False]):
+        fail("tight cull: a culled pair reaches the alpha floor, the cull added pairs, it "
+             "culled nothing, or kernel A differs on the culled frame")
+    return {"composite_fwd": {"tight_cull_launches": launched["composite_fwd"],
+                              "tight_cull_ms": a_t["cull on"][0],
+                              "tight_cull_ms_off": a_t["cull off"][0]},
+            "composite_bwd": {"tight_cull_launches": launched["composite_bwd"],
+                              "tight_cull_ms": b_t["cull on"][0],
+                              "tight_cull_ms_off": b_t["cull off"][0]},
+            "pairs": in_ranges, "bin_ms": bin_ms, "pack_ms": pack_ms}
 
 
 def main() -> int:
@@ -1890,6 +2176,13 @@ def main() -> int:
         phase_done(12)
         evaluation = eval_phase(dev, model_dir, trained, fps, card)
         phase_done(13)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="ex4dgs_phase14_") as tmp:
+        quality = quality_phase(dev, card, tmp)
+    phase_done(14)
+    torch.cuda.empty_cache()
+    cull = tight_cull_phase(dev, card)
+    phase_done(15)
     log("# phase times (s): " + ", ".join(f"{n} {t:.1f}" for n, t in phase_s)
         + f"; total {sum(t for _, t in phase_s):.1f}")
 
@@ -1904,9 +2197,13 @@ def main() -> int:
                      + trainer["composite_fwd"]["trainer_launches"]
                      + evaluation["composite_fwd"]["eval_launches"]
                      + evaluation["composite_fwd"]["viewer_launches"]
-                     + evaluation["composite_fwd"]["surface_launches"]),
+                     + evaluation["composite_fwd"]["surface_launches"]
+                     + quality["composite_fwd"]["quality_launches"]
+                     + cull["composite_fwd"]["tight_cull_launches"]),
         **trainer["composite_fwd"],
         **evaluation["composite_fwd"],
+        **quality["composite_fwd"],
+        **cull["composite_fwd"],
         "max_abs_err": err_fwd,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1921,9 +2218,13 @@ def main() -> int:
         "replaces": "ex4dgs_tpu/ops/rasterize_pallas.py:713",
         "launches": (train_launches["composite_bwd"] + sub["composite_bwd"]["subpixel_launches"]
                      + trainer["composite_bwd"]["trainer_launches"]
-                     + evaluation["composite_bwd"]["viewer_launches"]),
+                     + evaluation["composite_bwd"]["viewer_launches"]
+                     + quality["composite_bwd"]["quality_launches"]
+                     + cull["composite_bwd"]["tight_cull_launches"]),
         **trainer["composite_bwd"],
         **evaluation["composite_bwd"],
+        **quality["composite_bwd"],
+        **cull["composite_bwd"],
         "max_abs_err": err_bwd,
         "ms": ms_b,
         "plain_ms": plain_ms_b,

@@ -68,26 +68,30 @@ def bench_scene(device=None) -> BenchScene:
                       min(PROBE_CAPACITY, round_capacity(total * 5 // 4, 65536)))
 
 
-def pack_frame(scene: BenchScene, tile_x: int = 32, tile_y: int = 16) -> Frame:
+def pack_frame(scene: BenchScene, tile_x: int = 32, tile_y: int = 16,
+               tight_cull: bool = False) -> Frame:
     """The scene's instances at t = 1 (the timestamp bench_scene sized the
-    capacity at), binned and packed at tile_x x tile_y, on the scene's
-    device."""
-    return pack_view(scene.model, scene.cfg, scene.cam, 1.0, scene.capacity, tile_x, tile_y)
+    capacity at), binned (with the tight cull if asked) and packed at
+    tile_x x tile_y, on the scene's device."""
+    return pack_view(scene.model, scene.cfg, scene.cam, 1.0, scene.capacity, tile_x, tile_y,
+                     tight_cull)
 
 
 def pack_view(model: GaussianModel, cfg: ModelConfig, cam: RenderCamera, t: float,
-              capacity: int, tile_x: int = 32, tile_y: int = 16) -> Frame:
+              capacity: int, tile_x: int = 32, tile_y: int = 16,
+              tight_cull: bool = False) -> Frame:
     """The kernels' inputs for `model` seen by `cam` at time t, as the
     render path builds them: binned into `capacity` instance slots (it
     raises if they overflow) and packed at tile_x x tile_y, on the model's
     device."""
-    kcfg = KernelConfig(tile_x=tile_x, tile_y=tile_y).validate()
+    kcfg = KernelConfig(tile_x=tile_x, tile_y=tile_y, tight_cull=tight_cull).validate()
     with torch.no_grad():
         pts = point_data_at_t(model, cfg, t)
         proj, colors = preprocess_points(pts, cam, cfg, near=cfg.near, far=cfg.far,
                                          kernel_cfg=kcfg)
         gx, gy = tile_grid(cam.width, cam.height, tile_x, tile_y)
-        binning = bin_gaussians(proj, gx, gy, capacity)
+        binning = bin_gaussians(proj, gx, gy, capacity, tight_cull=tight_cull, tile_x=tile_x,
+                                tile_y=tile_y)
         if int(binning.total) > capacity:
             raise ValueError(f"{int(binning.total)} instances overflow capacity {capacity}")
         flow = torch.zeros((proj.xy.shape[0], 3), device=proj.xy.device)

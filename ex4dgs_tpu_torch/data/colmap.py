@@ -57,6 +57,22 @@ def qvec2rotmat(qvec: np.ndarray) -> np.ndarray:
     ])
 
 
+def rotmat2qvec(R: np.ndarray) -> np.ndarray:
+    """The unit quaternion (w, x, y, z, w >= 0) of rotation matrix R."""
+    Rxx, Ryx, Rzx, Rxy, Ryy, Rzy, Rxz, Ryz, Rzz = R.flat
+    K = np.array([
+        [Rxx - Ryy - Rzz, 0, 0, 0],
+        [Ryx + Rxy, Ryy - Rxx - Rzz, 0, 0],
+        [Rzx + Rxz, Rzy + Ryz, Rzz - Rxx - Ryy, 0],
+        [Ryz - Rzy, Rzx - Rxz, Rxy - Ryx, Rxx + Ryy + Rzz],
+    ]) / 3.0
+    eigvals, eigvecs = np.linalg.eigh(K)
+    qvec = eigvecs[[3, 0, 1, 2], np.argmax(eigvals)]
+    if qvec[0] < 0:
+        qvec *= -1
+    return qvec
+
+
 def _read(f, n, fmt):
     return struct.unpack("<" + fmt, f.read(n))
 

@@ -162,25 +162,44 @@ class ImagePrefetcher:
     decodes in flight; the image is a float32 [H, W, 3] tensor on `device`
     (cuda unless told otherwise), never a host array on the card's path.
 
-    Decoding is PIL's (LANCZOS) in a thread pool. The JAX package prefers
-    its native libpng loader (`ex4dgs_tpu/native/`, a box-filter
-    downsample) and falls back to this same PIL path where that library is
-    not built; the port has only the PIL path.
+    Decoding, as in the JAX package: with `native` (the default) PNG frames
+    go to the native libpng pool (`native/`, a box-filter downsample, built
+    with g++ at construction), any other file to PIL (LANCZOS) in a thread
+    pool; where the native library cannot be built, every frame goes to
+    PIL. Nothing of this is silent: `decoder` is "native" or "pil" (the
+    pool this prefetcher took), `native_error` why the native pool is
+    missing (None if it was not asked for or built), `decoded` counts the
+    frames each decoder delivered (a PNG the native pool fails on is
+    decoded by PIL and counted there), and `stats()` reports all of it
+    with the cache's counters.
 
     device_cache_mb: budget of an LRU cache of decoded frames ON THE DEVICE
     (default EX4DGS_GT_CACHE_MB, 1024). Training revisits each frame every
     epoch, so a cached frame skips both the decode and the upload. Frames
     are evicted oldest first while the cached bytes exceed the budget (at
     least one stays). 0 disables the cache: every frame is decoded and
-    uploaded. `hits` counts frames served from the cache, `decodes` frames
-    decoded; `decode_ms` and `upload_ms` hold each decode's and upload's
-    host-clock time."""
+    uploaded (a cached ticket whose frame was evicted before it was
+    served is decoded by PIL, as in JAX). `hits` counts frames served from
+    the cache, `decodes` frames decoded; `decode_ms` holds each PIL
+    decode's host-clock time in its worker thread, `wait_ms` the time the
+    consumer waited on each decoded frame (either decoder) and `upload_ms`
+    each upload's."""
 
-    def __init__(self, workers: int = 4, lookahead: int = 8,
+    def __init__(self, workers: int = 4, lookahead: int = 8, native: bool = True,
                  device_cache_mb: float | None = None, device=None):
         self.device = resolve_device(device)
         self.pool = ThreadPoolExecutor(max_workers=workers)
         self.lookahead = lookahead
+        self.native = None
+        self.native_error = None
+        if native:
+            try:
+                from ..native import NativeImageLoader
+
+                self.native = NativeImageLoader(workers)
+            except Exception as e:  # no g++ or no libpng: PIL, recorded
+                self.native_error = f"{type(e).__name__}: {e}"
+        self.decoder = "native" if self.native is not None else "pil"
         if device_cache_mb is None:
             device_cache_mb = float(os.environ.get("EX4DGS_GT_CACHE_MB", 1024))
         self._cache_budget = int(device_cache_mb * 1024 * 1024)
@@ -188,18 +207,30 @@ class ImagePrefetcher:
         self._cache_bytes = 0
         self.hits = 0
         self.decodes = 0
+        self.decoded = {"native": 0, "pil": 0}
         self.decode_ms: list[float] = []
+        self.wait_ms: list[float] = []
         self.upload_ms: list[float] = []
 
     def close(self) -> None:
         """Stop the decode threads and drop the cached frames."""
         self.pool.shutdown(wait=True, cancel_futures=True)
+        if self.native is not None:
+            self.native.close()
         self._cache.clear()
         self._cache_bytes = 0
 
     @property
     def cache_bytes(self) -> int:
         return self._cache_bytes
+
+    def stats(self) -> dict:
+        """The decoder and cache counters (the training report's GT-cache
+        block)."""
+        return {"decoder": self.decoder, "native_error": self.native_error,
+                "decoded": dict(self.decoded), "hits": self.hits, "decodes": self.decodes,
+                "bytes": self.cache_bytes, "decode_ms": self.decode_ms,
+                "wait_ms": self.wait_ms, "upload_ms": self.upload_ms}
 
     @staticmethod
     def _cache_key(cam: Camera):
@@ -211,6 +242,9 @@ class ImagePrefetcher:
             if key in self._cache:
                 self._cache.move_to_end(key)
                 return ("cached", key)
+        if self.native is not None and cam.image_path.lower().endswith(".png"):
+            return ("native", self.native.submit(cam.image_path, cam.width, cam.height,
+                                                 cam.im_scale))
         return ("pil", self.pool.submit(self._decode, cam))
 
     def _decode(self, cam: Camera) -> np.ndarray:
@@ -241,6 +275,23 @@ class ImagePrefetcher:
             self._cache_bytes -= old.nbytes
         return img
 
+    def _wait(self, kind: str, h, cam: Camera) -> np.ndarray:
+        """The decoded frame of a ticket, counted under the decoder that
+        delivered it."""
+        t0 = time.perf_counter()
+        if kind == "native":
+            try:
+                arr = self.native.wait(h)
+            except IOError:
+                kind, arr = "pil", self._decode(cam)
+        elif kind == "pil":
+            arr = h.result()
+        else:  # a cached ticket that outlived its entry: PIL, as in JAX
+            kind, arr = "pil", self._decode(cam)
+        self.wait_ms.append((time.perf_counter() - t0) * 1e3)
+        self.decoded[kind] += 1
+        return arr
+
     def _result(self, handle, cam: Camera) -> torch.Tensor:
         kind, h = handle
         if kind == "cached":
@@ -252,9 +303,9 @@ class ImagePrefetcher:
             # tickets can be outstanding while interleaved _cache_put
             # evictions (budget < ~lookahead+1 frames) pop the key. Degrade
             # to a decode instead of failing the epoch.
-            img = self._upload(self._decode(cam))
+            img = self._upload(self._wait(kind, h, cam))
             return self._cache_put(cam, img)
-        img = self._upload(h.result())
+        img = self._upload(self._wait(kind, h, cam))
         if self._cache_budget > 0:
             return self._cache_put(cam, img)
         return img

@@ -16,6 +16,13 @@ Counterpart of `ex4dgs_tpu/ops/binning.py` (default path plus
 
 Instances beyond `capacity` are dropped from the back of the prefix order;
 `total` reports the true count so callers can detect the overflow.
+
+With `tight_cull` (KernelConfig.tight_cull, JAX's `TIGHT_CULL`) an
+instance whose alpha a box bound proves below the compositing floor over
+its whole tile is sent to the sentinel tile before the sort: it keeps its
+slot and sorts past the last tile, `total` is unchanged, and only the
+tiles' ranges shrink. The bound is JAX's operation for operation, so both
+packages cull the same instances.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from .compositing import ALPHA_MIN
 from .projection import Projected
 
 
@@ -34,11 +42,17 @@ class Binning(NamedTuple):
     total: torch.Tensor  # [] int32 true instance count (may exceed capacity)
     cum: torch.Tensor  # [P] int32 inclusive prefix of per-Gaussian counts
     counts: torch.Tensor  # [P] int32 tiles touched per Gaussian
+    # [capacity] int32 each sorted instance's slot in the expansion (prefix)
+    # order before the sort; the port's own field (JAX's Binning has none),
+    # read by the pack VJP (ops/rasterize_cuda.py::PackSorted)
+    slot: torch.Tensor
 
 
 def bin_gaussians(proj: Projected, grid_x: int, grid_y: int, capacity: int,
-                  exact_depth_sort: bool = False) -> Binning:
-    """Bin Gaussians into depth-sorted per-tile instance lists."""
+                  exact_depth_sort: bool = False, tight_cull: bool = False,
+                  tile_x: int = 32, tile_y: int = 16) -> Binning:
+    """Bin Gaussians into depth-sorted per-tile instance lists (tile_x x
+    tile_y pixel tiles; the shape matters only to `tight_cull`)."""
     dev = proj.depth.device
     i32 = dict(dtype=torch.int32, device=dev)
     num_tiles = grid_x * grid_y
@@ -70,8 +84,11 @@ def bin_gaussians(proj: Projected, grid_x: int, grid_y: int, capacity: int,
     dy = torch.div(local, rw, rounding_mode="floor")
     dx = local - dy * rw
     in_range = slots < total
-    tile = torch.where(in_range, (ry + dy) * grid_x + (rx + dx),
-                       torch.full_like(slots, num_tiles))  # sentinel sorts last
+    tile = (ry + dy) * grid_x + (rx + dx)
+    if tight_cull:
+        cull = _culled(proj, g, rx + dx, ry + dy, tile_x, tile_y)
+        tile = torch.where(cull, torch.full_like(tile, num_tiles), tile)
+    tile = torch.where(in_range, tile, torch.full_like(slots, num_tiles))  # sentinel sorts last
 
     tile_ids = torch.arange(num_tiles, **i32)
     depth = proj.depth[g]
@@ -94,7 +111,45 @@ def bin_gaussians(proj: Projected, grid_x: int, grid_y: int, capacity: int,
         start = torch.searchsorted(key_s, tile_ids << depth_bits, side="left")
         stop = torch.searchsorted(key_s, (tile_ids + 1) << depth_bits, side="left")
     return Binning(order=gauss_c[perm], tile_id=tile_s, tile_start=start.to(torch.int32),
-                   tile_stop=stop.to(torch.int32), total=total, cum=cum, counts=counts)
+                   tile_stop=stop.to(torch.int32), total=total, cum=cum, counts=counts,
+                   slot=perm.to(torch.int32))
+
+
+def _culled(proj: Projected, g, col, row, tile_x: int, tile_y: int) -> torch.Tensor:
+    """[capacity] bool: the instances (Gaussian g in tile (col, row)) whose
+    alpha is below ALPHA_MIN everywhere in the tile's pixel box enlarged by
+    a 1 px margin (JAX's ops/binning.py:150-201, in its order of
+    operations). The least of the conic's PSD quadratic over a box is 0 if
+    the centre lies inside, else it lies on an edge, where the free
+    coordinate takes its clamped unconstrained optimum. The 1e-3 relative
+    slack covers the kernels' own alpha rounding; a NaN bound compares
+    False and the instance is kept."""
+    mx, my = proj.xy[g, 0], proj.xy[g, 1]
+    ca, cb, cc = proj.conic[g, 0], proj.conic[g, 1], proj.conic[g, 2]
+    op = (proj.opacity * proj.valid)[g]
+    margin = 1.0
+    u0 = col.to(torch.float32) * float(tile_x) - margin - mx
+    u1 = u0 + (float(tile_x) + 2.0 * margin)
+    v0 = row.to(torch.float32) * float(tile_y) - margin - my
+    v1 = v0 + (float(tile_y) + 2.0 * margin)
+    inside = (u0 <= 0) & (u1 >= 0) & (v0 <= 0) & (v1 >= 0)
+    ca_s = torch.clamp_min(ca, 1e-12)
+    cc_s = torch.clamp_min(cc, 1e-12)
+
+    def quad(u, v):
+        return ca * u * u + 2.0 * cb * u * v + cc * v * v
+
+    def q_ufix(u):
+        return quad(u, torch.minimum(torch.maximum(-cb * u / cc_s, v0), v1))
+
+    def q_vfix(v):
+        return quad(torch.minimum(torch.maximum(-cb * v / ca_s, u0), u1), v)
+
+    qmin = torch.minimum(torch.minimum(q_ufix(u0), q_ufix(u1)),
+                         torch.minimum(q_vfix(v0), q_vfix(v1)))
+    qmin = torch.where(inside, torch.zeros_like(qmin), torch.clamp_min(qmin, 0.0))
+    bound = op * torch.exp(-0.5 * qmin)
+    return bound < ALPHA_MIN * (1.0 - 1e-3)
 
 
 def required_capacity(total: int, granularity: int = 65536) -> int:

@@ -177,6 +177,11 @@ def rgb_to_sh0(rgb):
     return (rgb - 0.5) / SH_C0
 
 
+def sh0_to_rgb(sh):
+    """The DC shift: sh * SH_C0 + 0.5."""
+    return sh * SH_C0 + 0.5
+
+
 # Camera matrices: host-side numpy, tiny and built once per camera.
 
 def world_to_view(R: np.ndarray, t: np.ndarray, translate=None,

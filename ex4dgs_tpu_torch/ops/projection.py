@@ -141,3 +141,18 @@ def project_gaussians(means3d, cov3d, opacities, cam: CameraArrays, *, width: in
 
 def compute_cov3d(scales, rotations, scale_modifier: float = 1.0):
     return cov3d_from_scaling_rotation(scales, rotations, scale_modifier)
+
+
+def mark_visible(means3d, cam: CameraArrays, min_depth: float = 0.2,
+                 max_depth: float = 100.0) -> torch.Tensor:
+    """[P] bool: the standalone frustum-visibility test
+    (rasterizer_impl.cu:markVisible; JAX's projection.py:191)."""
+    P = means3d.shape[0]
+    hom = torch.cat([means3d, torch.ones((P, 1), dtype=means3d.dtype, device=means3d.device)],
+                    dim=1)
+    p_view = hom @ cam.view[:3].T
+    p_hom = hom @ cam.proj.T
+    p_proj = p_hom[:, :3] / (p_hom[:, 3:4] + 1e-7)
+    depth = p_view[:, 2]
+    return ((depth > min_depth) & (depth <= max_depth)
+            & (torch.abs(p_proj[:, 0]) <= 1.3) & (torch.abs(p_proj[:, 1]) <= 1.3))

@@ -60,31 +60,41 @@ def _pixels(grid_x: int, num_tiles: int, tile_x: int, tile_y: int, device,
 
 class PackSorted(torch.autograd.Function):
     """data[:, k] = rows[:, order[k]] (order clipped to [0, P)), with a
-    deterministic VJP: the cotangent columns are re-sorted by Gaussian (a
-    stable sort of `order` recovers the expansion order, whose segments
-    are [cum - counts, cum)) and each Gaussian's segment is summed as a
-    difference of a float64 inclusive prefix. Autograd of index_select
-    would scatter-add with float atomics on the GPU. Tail slots (past the
-    last instance) alias real Gaussians through the clipped order; they
-    sort after every segment and are summed into none."""
+    deterministic VJP: the cotangent columns are put back into the
+    expansion order by one scatter of `slot` (Binning.slot, each sorted
+    instance's expansion slot), where each Gaussian's instances fill the
+    segment [cum - counts, cum), and each segment is summed as a difference
+    of a float64 inclusive prefix. Autograd of index_select would
+    scatter-add with float atomics on the GPU. Tail slots (past the last
+    instance) alias real Gaussians through the clipped order; they come
+    after every segment and are summed into none.
+
+    Within a Gaussian the expansion order is the sorted order (its
+    instances lie in distinct tiles, expanded in tile order), so this is
+    the sum of a stable sort by Gaussian id, except where the tight cull
+    moved an instance past the last tile: there the culled instance keeps
+    its place in the prefix, and since its cotangent is zero either way,
+    every gradient is bit-equal with the cull on and off (a parallel scan
+    rounds by where each value sits)."""
 
     @staticmethod
-    def forward(ctx, rows, order, cum, counts):
-        ctx.save_for_backward(order, cum, counts)
+    def forward(ctx, rows, order, cum, counts, slot):
+        ctx.save_for_backward(order, cum, counts, slot)
         return rows.index_select(1, order.long().clamp(0, rows.shape[1] - 1))
 
     @staticmethod
     def backward(ctx, ct):
-        order, cum, counts = ctx.saved_tensors
+        order, cum, counts, slot = ctx.saved_tensors
         capacity = order.shape[0]
-        slot_s = torch.sort(order, stable=True).indices
+        slot_s = torch.empty(capacity, dtype=torch.long, device=ct.device)
+        slot_s[slot.long()] = torch.arange(capacity, device=ct.device)
         pref = torch.zeros((ct.shape[0], capacity + 1), dtype=torch.float64,
                            device=ct.device)
         torch.cumsum(ct.index_select(1, slot_s).double(), dim=1, out=pref[:, 1:])
         hi = cum.long().clamp(0, capacity)
         lo = (cum - counts).long().clamp(0, capacity)
         d_rows = (pref.index_select(1, hi) - pref.index_select(1, lo)).float()
-        return d_rows, None, None, None
+        return d_rows, None, None, None, None
 
 
 def pack_sorted(proj: Projected, colors, flow, binning: Binning):
@@ -105,7 +115,7 @@ def pack_sorted(proj: Projected, colors, flow, binning: Binning):
         ones, zeros, zeros,
     ], dim=0)  # [16, P]
     # feature-major [16, capacity], no transpose
-    data = PackSorted.apply(rows, binning.order, binning.cum, binning.counts)
+    data = PackSorted.apply(rows, binning.order, binning.cum, binning.counts, binning.slot)
     return data, binning.order.to(torch.int32).contiguous()
 
 

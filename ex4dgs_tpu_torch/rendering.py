@@ -158,7 +158,9 @@ def composite_projected(proj: Projected, colors, flow_dirs, cam: RenderCamera, *
                              f"{tuple(subpixel_offset.shape)}, expected float32 {shape}")
     grid_x, grid_y = tile_grid(cam.width, cam.height, kcfg.tile_x, kcfg.tile_y)
     binning = binning_ops.bin_gaussians(proj, grid_x, grid_y, capacity,
-                                        exact_depth_sort=kcfg.exact_sort)
+                                        exact_depth_sort=kcfg.exact_sort,
+                                        tight_cull=kcfg.tight_cull, tile_x=kcfg.tile_x,
+                                        tile_y=kcfg.tile_y)
     out = rasterize_tiled_cuda(proj, colors, flow_dirs, binning, width=cam.width,
                                height=cam.height, bg=bg, max_depth=far, tile_x=kcfg.tile_x,
                                tile_y=kcfg.tile_y, track_idx=track_idx,

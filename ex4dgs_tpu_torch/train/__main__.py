@@ -13,8 +13,8 @@ At each save iteration (--save_iterations, --checkpoint_iterations and the
 last iteration) it writes `point_cloud/iteration_N/point_cloud.ply` and
 `chkpntN.npz` under the model path; at the end, `train_report.json` there:
 the losses, event counts and times, n_static/n_dynamic after each event,
-the GT cache's hits and bytes, the kernels' launch counts and the host
-clock per iteration.
+the GT cache's decoder ("native" libpng or "pil"), hits and bytes, the
+kernels' launch counts and the host clock per iteration.
 
 --port N (with --ip, default 127.0.0.1) serves the live SIBR viewer
 (`viewer.NetworkViewer`) between steps; 0, the default, disables it.
@@ -97,7 +97,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     scene = Scene(cfg, model_path=model_path, save_input=True)
     scene_s = time.perf_counter() - t0
-    model = opt_state = kernel = None
+    model = opt_state = None
+    # the JAX CLI's kernel knob from the environment (its EX4DGS_TIGHT_CULL);
+    # a checkpoint's recorded config takes its place on a resume
+    kernel = KernelConfig(tight_cull=os.environ.get("EX4DGS_TIGHT_CULL", "0") == "1")
     if args.start_checkpoint:
         hm, start_it, extra = load_checkpoint(args.start_checkpoint)
         model, opt_state = push(hm, cfg, device=dev)
@@ -150,9 +153,7 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             saved[target] = digest(trainer.save(model_path, target))
             save_ms.append((time.perf_counter() - t0) * 1e3)
-        cache = trainer.prefetcher
-        gt_cache = {"hits": cache.hits, "decodes": cache.decodes, "bytes": cache.cache_bytes,
-                    "decode_ms": cache.decode_ms, "upload_ms": cache.upload_ms}
+        gt_cache = trainer.prefetcher.stats()
     finally:
         trainer.close()
         if gui is not None:

@@ -28,6 +28,7 @@ trainers the same cameras, backgrounds and event randomness.
 """
 from __future__ import annotations
 
+import json
 import os
 import random
 import time
@@ -51,7 +52,6 @@ from ..rendering import default_capacity, render
 from .step import StepStatics, train_step
 
 OVERFLOW_RETRIES = 4
-LOG_EVERY = 50  # iterations between progress callbacks
 
 
 class ErrorTracker:
@@ -96,12 +96,20 @@ class Trainer:
     event's transfers), `event_log` ((iteration, kind, n_static,
     n_dynamic) after each event), `overflow_count` (retries after a binning
     overflow), `test_renders` and `steps` (train_step calls, retries
-    included), `gui_renders` (viewer requests served)."""
+    included), `gui_renders` (viewer requests served).
+
+    metrics_path: a JSONL file appended to as the JAX trainer writes it:
+    every `log_every` iterations {"iteration", "loss", "psnr", "n_static",
+    "n_dynamic"} (after the iteration's step and overflow retries, before
+    its events), and {"iteration", "test": report} after each test report.
+    The loop is serial, so a line lags no step. `log_every` also spaces the
+    `progress` callbacks."""
 
     def __init__(self, cfg: ModelConfig, opt: OptimizationConfig, scene: Scene,
                  model: GaussianModel | None = None, opt_state: RAdamState | None = None,
-                 seed: int = 0, capacity: int | None = None,
-                 test_iterations: tuple = (), kernel: KernelConfig | None = None,
+                 seed: int = 0, capacity: int | None = None, log_every: int = 50,
+                 test_iterations: tuple = (), metrics_path: str | None = None,
+                 kernel: KernelConfig | None = None,
                  debug_snapshot_dir: str | None = None, gui=None, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -109,6 +117,7 @@ class Trainer:
         self.scene = scene
         self.rng = np.random.default_rng(seed)
         self.pyrng = random.Random(seed)
+        self.log_every = log_every
         self.kernel = (kernel or KernelConfig()).validate()
 
         if model is None:
@@ -127,6 +136,7 @@ class Trainer:
         n_pts = model.static_capacity + model.dynamic_capacity
         self.capacity = capacity or default_capacity(n_pts, w, h, self.kernel)
         self.test_iterations = set(test_iterations)
+        self._metrics_file = open(metrics_path, "a") if metrics_path else None
         self.debug_snapshot_dir = debug_snapshot_dir
         # Optional live network viewer (viewer.NetworkViewer), polled before
         # every step like the reference's network_gui hook (train.py:93-106).
@@ -164,6 +174,14 @@ class Trainer:
 
     def close(self) -> None:
         self.prefetcher.close()
+        if self._metrics_file is not None:
+            self._metrics_file.close()
+            self._metrics_file = None
+
+    def _log_line(self, record: dict) -> None:
+        if self._metrics_file is not None:
+            self._metrics_file.write(json.dumps(record) + "\n")
+            self._metrics_file.flush()
 
     # ------------------------------------------------------------------
     def _statics(self) -> StepStatics:
@@ -303,8 +321,13 @@ class Trainer:
             metrics["psnr"].append(float(out.psnr))
             metrics["timestamps"].append(cam.timestamp)
             metrics["backgrounds"].append(bg_np)
-            if progress and it % LOG_EVERY == 0:
-                progress(it, loss, float(out.psnr))
+            if it % self.log_every == 0:
+                if progress:
+                    progress(it, loss, float(out.psnr))
+                if self._metrics_file is not None:
+                    self._log_line({"iteration": it, "loss": loss, "psnr": float(out.psnr),
+                                    "n_static": int(self.model.n_static()),
+                                    "n_dynamic": int(self.model.n_dynamic())})
             # the NaN flag of this iteration's update, read now (no lag)
             ran = []
             if bool(out.nan_flag):
@@ -315,6 +338,7 @@ class Trainer:
             if it in self.test_iterations:
                 report = self.evaluate_test_set()
                 metrics.setdefault("test_reports", []).append((it, report))
+                self._log_line({"iteration": it, "test": report})
 
             ran += self._scheduled_events(it)
             _sync(dev)

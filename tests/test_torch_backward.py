@@ -161,9 +161,9 @@ def grad_case(request):
 
     from ex4dgs_tpu.ops import rasterize_pallas as jrp
     from ex4dgs_tpu.ops import rasterize_tiled as jrt
-    from ex4dgs_tpu_torch.ops.binning import Binning
     from ex4dgs_tpu_torch.ops.projection import Projected
-    from torch_parity import jax_bin, jax_kernel_dot, jax_tiles, projected_scene, tt
+    from torch_parity import (jax_bin, jax_kernel_dot, jax_tiles, port_binning,
+                              projected_scene, tt)
 
     tile = request.param
     bg = (0.1, 0.1, 0.1)
@@ -185,7 +185,7 @@ def grad_case(request):
         pallas = loss_with(lambda *a, **k: jrp.rasterize_tiled_pallas(*a, interpret=True,
                                                                       **k))(*args)
     proj = Projected(*(tt(a) for a in j["proj"]))
-    binning = Binning(**{f: tt(getattr(bj, f)) for f in Binning._fields})
+    binning = port_binning(bj)
     as_np = lambda vg: (float(vg[0]), [np.asarray(g) for g in vg[1]])  # noqa: E731
     return dict(tile=tile, bg=bg, tgt=tgt, proj=proj, binning=binning,
                 args=[tt(a) for a in args], oracle=as_np(oracle), pallas=as_np(pallas))
@@ -248,8 +248,11 @@ def _pack_case(P, cap, seed):
 
 def _port_pack_vjp(cols, order, cum, counts, ct):
     rows = torch.tensor(cols.T.copy(), requires_grad=True)
-    data = trc.PackSorted.apply(rows, torch.tensor(order), torch.tensor(cum),
-                                torch.tensor(counts))
+    from torch_parity import expansion_slots
+
+    order_t = torch.tensor(order)
+    data = trc.PackSorted.apply(rows, order_t, torch.tensor(cum), torch.tensor(counts),
+                                expansion_slots(order_t))
     (g,) = torch.autograd.grad((data * torch.tensor(ct)).sum(), [rows])
     return g.numpy().T  # [P, 16]
 

@@ -23,7 +23,7 @@ import torch
 from ex4dgs_tpu_torch import kernels
 from ex4dgs_tpu_torch.ops import rasterize_cuda as trc
 from ex4dgs_tpu_torch.ops import rasterize_tiled as trt
-from ex4dgs_tpu_torch.ops.binning import Binning, bin_gaussians
+from ex4dgs_tpu_torch.ops.binning import bin_gaussians
 from ex4dgs_tpu_torch.ops.projection import Projected
 from ex4dgs_tpu_torch.ops.rasterize_tiled import tile_pixels
 
@@ -38,11 +38,11 @@ IMAGE_FIELDS = ("color", "depth", "flow", "acc", "final_t")
 def _port_inputs(j):
     """The JAX projection and binning as port tensors, so only what follows
     them is under test."""
-    from torch_parity import jax_bin, tt
+    from torch_parity import jax_bin, port_binning, tt
 
     bj = jax_bin(j["proj"], j["gx"], j["gy"], CAP)
     proj = Projected(*(tt(a) for a in j["proj"]))
-    binning = Binning(**{f: tt(getattr(bj, f)) for f in Binning._fields})
+    binning = port_binning(bj)
     return bj, proj, tt(j["colors"]), tt(j["flow"]), binning
 
 

@@ -335,16 +335,15 @@ def test_nonfinite_and_indefinite_inputs_are_never_skipped():
 def test_cull_skips_a_share_of_a_projected_scene(tile):
     """On the parity scene the twin skips a nonzero share of the pairs that
     the kernel would walk, and none that contributes."""
-    from torch_parity import jax_bin, jax_tiles, projected_scene, tt
+    from torch_parity import jax_bin, jax_tiles, port_binning, projected_scene, tt
 
-    from ex4dgs_tpu_torch.ops.binning import Binning
     from ex4dgs_tpu_torch.ops.projection import Projected
 
     with jax_tiles(*tile):
         j, _ = projected_scene(n=300, seed=0, tile=tile)
         bj = jax_bin(j["proj"], j["gx"], j["gy"], 8192)
     proj = Projected(*(tt(a) for a in j["proj"]))
-    b = Binning(**{f: tt(getattr(bj, f)) for f in Binning._fields})
+    b = port_binning(bj)
     data, _ = trc.pack_sorted(proj, tt(j["colors"]), tt(j["flow"]), b)
     data = data.detach()
     T = b.tile_start.shape[0]

@@ -148,7 +148,9 @@ def test_n3v_reader_and_scene(tmp_path):
     _cameras_equal(scene.sampled_train_cameras(), jscene.sampled_train_cameras())
     assert all(c.timestamp <= 1.0 for c in scene.sampled_train_cameras())
 
-    pf = ImagePrefetcher(workers=2, lookahead=2, device="cpu")
+    # PIL, the decoder of JAX's load_image (the native pool's parity with
+    # JAX's is tests/test_torch_native.py's)
+    pf = ImagePrefetcher(workers=2, lookahead=2, native=False, device="cpu")
     seen = 0
     for cam, img in pf.epoch(scene.sampled_train_cameras(), shuffle=True):
         assert img.shape == (cam.height, cam.width, 3) and img.dtype == torch.float32
@@ -355,7 +357,9 @@ def test_prefetcher_device_cache(tmp_path):
                            near=0.1, far=10.0, timestamp=float(i)))
     frame_bytes = 12 * 16 * 3 * 4
 
-    pf = ImagePrefetcher(workers=1, lookahead=2, device_cache_mb=1.0, device="cpu")
+    # PIL throughout, the decoder the frames are compared with
+    pf = ImagePrefetcher(workers=1, lookahead=2, native=False, device_cache_mb=1.0,
+                         device="cpu")
     first = {c.colmap_id: img for c, img in pf.epoch(cams, shuffle=False)}
     assert len(pf._cache) == 4 and pf.decodes == 4 and pf.hits == 0
     assert pf.cache_bytes == 4 * frame_bytes
@@ -367,8 +371,8 @@ def test_prefetcher_device_cache(tmp_path):
     assert pf.hits == 4 and pf.decodes == 4
     pf.close()
 
-    tiny = ImagePrefetcher(workers=1, lookahead=2, device_cache_mb=frame_bytes * 2.5 / 2**20,
-                           device="cpu")
+    tiny = ImagePrefetcher(workers=1, lookahead=2, native=False,
+                           device_cache_mb=frame_bytes * 2.5 / 2**20, device="cpu")
     for _ in tiny.epoch(cams, shuffle=False):
         pass
     assert len(tiny._cache) == 2 and tiny.cache_bytes <= tiny._cache_budget
@@ -378,7 +382,8 @@ def test_prefetcher_device_cache(tmp_path):
     assert tiny.hits == 2 and tiny.decodes == 6
     tiny.close()
 
-    off = ImagePrefetcher(workers=1, lookahead=2, device_cache_mb=0, device="cpu")
+    off = ImagePrefetcher(workers=1, lookahead=2, native=False, device_cache_mb=0,
+                          device="cpu")
     for cam, img in off.epoch(cams, shuffle=False):
         assert torch.is_tensor(img) and img.device.type == "cpu"
         np.testing.assert_array_equal(img.numpy(), jload_image(cam.image_path, (16, 12)))

@@ -331,6 +331,7 @@ def test_render_set_gives_the_trainers_test_report(scene_root):
     """On the model the trainer's test report rendered (no event between
     them), render_set's test PSNR over the same frames is the report's."""
     from ex4dgs_tpu_torch.data.readers import read_n3v_scene
+    from ex4dgs_tpu_torch.data.scene import ImagePrefetcher
     from ex4dgs_tpu_torch.eval.render_sets import render_set
     from ex4dgs_tpu_torch.models.config import OptimizationConfig
     from ex4dgs_tpu_torch.train.trainer import Trainer
@@ -341,6 +342,12 @@ def test_render_set_gives_the_trainers_test_report(scene_root):
                              prune_invisible_interval=100000, random_background=False)
     tr = Trainer(cfg, opt, Scene(cfg, scene_info=read_n3v_scene(scene_root, cfg)),
                  capacity=65536, test_iterations=(5,), device="cpu")
+    # render_set loads its ground truth with PIL (load_image, as JAX's
+    # eval does); the trainer's report must see the same frames, and its
+    # default decoder is the native pool, which box-filters the resampled
+    # frames (resolution 8)
+    tr.prefetcher.close()
+    tr.prefetcher = ImagePrefetcher(native=False, device="cpu")
     (it, report), = tr.train(iterations=5)["test_reports"]
     tr.close()
     got = render_set(tr.model, cfg, tr.scene, "test", measure_fps=False, lpips_nets=(),

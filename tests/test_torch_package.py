@@ -1,8 +1,9 @@
 """The port's package boundary: what it imports, where it runs, and what its
 kernel wrapper accepts.
 
-- No file of ex4dgs_tpu_torch/ (the training CLI `train/__main__.py`
-  included), and not chip_smoke.py, imports `jax` or the JAX package
+- No file of ex4dgs_tpu_torch/ (the training CLI `train/__main__.py`, the
+  quality run, the native loader, preprocess and convert included), and
+  not chip_smoke.py, imports `jax` or the JAX package
   `ex4dgs_tpu` (an AST scan, and a fresh interpreter that imports the whole
   port and finds neither module loaded).
 - The entry points put their tensors on `cuda` unless given `device="cpu"`,
@@ -58,7 +59,9 @@ def test_the_scan_covers_the_training_entry_point():
                  "data/readers.py", "data/cameras.py", "data/colmap.py", "io/checkpoint.py",
                  "io/model_ply.py", "io/ply.py", "render_cli.py", "eval/render_sets.py",
                  "eval/metrics.py", "eval/lpips.py", "viewer.py", "compat.py",
-                 "runtime/profiling.py", "synthetic.py"):
+                 "runtime/profiling.py", "synthetic.py", "quality.py", "native/__init__.py",
+                 "preprocess/colmap_db.py", "preprocess/llff.py", "preprocess/pipeline.py",
+                 "preprocess/technicolor.py", "convert.py", "ops/rasterize_dense.py"):
         assert f"ex4dgs_tpu_torch/{path}" in names, path
 
 
@@ -92,10 +95,14 @@ def test_port_loads_without_jax_in_a_fresh_interpreter():
         "import ex4dgs_tpu_torch.render_cli, ex4dgs_tpu_torch.eval.render_sets\n"
         "import ex4dgs_tpu_torch.eval.metrics, ex4dgs_tpu_torch.eval.lpips\n"
         "import ex4dgs_tpu_torch.viewer, ex4dgs_tpu_torch.compat, ex4dgs_tpu_torch.runtime\n"
+        "import ex4dgs_tpu_torch.quality, ex4dgs_tpu_torch.native, ex4dgs_tpu_torch.convert\n"
+        "import ex4dgs_tpu_torch.preprocess.pipeline, ex4dgs_tpu_torch.preprocess.technicolor\n"
+        "import ex4dgs_tpu_torch.ops.rasterize_dense\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not loaded, loaded\n"
         "assert not ex4dgs_tpu_torch.kernels._libs\n"
+        "assert ex4dgs_tpu_torch.native._lib is None\n"
         "print('ok')\n")
     # An empty PATH: importing the kernels module must not look for nvcc.
     env = {**os.environ, "PATH": "", "PYTHONPATH": str(ROOT)}
@@ -180,6 +187,19 @@ def _call(entry, device, model, cfg, cam):
         return synthetic.make_surface_scene(n_static=60, n_dynamic=6, **kw)
     if entry == "rig_cameras":
         return synthetic.rig_cameras(2, 3.0, 64, 32, **kw)
+    if entry == "quality":
+        from ex4dgs_tpu_torch import quality
+
+        quality.PRESETS["package_test"] = dict(
+            width=32, height=24, n_static=300, n_dynamic=30, static_capacity=512,
+            dynamic_capacity=64, capacity=65536, iters=2, fps=False, n_cams=2)
+        try:
+            with tempfile.TemporaryDirectory() as root:
+                args = quality.parse_args(["--preset", "package_test", "--out", root]
+                                          + (["--device", device] if device else []))
+                return quality.run(args)["summary"]
+        finally:
+            del quality.PRESETS["package_test"]
     if entry == "CGaussianModel":
         gm = compat.CGaussianModel(sh_degree=3, duration=4, interval=2, **kw)
         rng = np.random.default_rng(0)
@@ -241,7 +261,7 @@ ENTRIES = ("make_scene", "ring_cameras", "lookat_camera", "empty_model", "model_
            "probe_unaligned_main", "probe_outspec_main", "probe_make_src", "push",
            "render_camera", "prefetcher_cache", "trainer", "train_cli", "render_set",
            "render_cli", "LPIPS", "viewer_receive", "make_surface_scene", "rig_cameras",
-           "CGaussianModel")
+           "CGaussianModel", "quality")
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -283,6 +303,8 @@ def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry):
         assert out[0].view.device.type == "cpu"
     if entry == "CGaussianModel":
         assert out.model.device.type == "cpu"
+    if entry == "quality":
+        assert out["device"] == "cpu" and out["iters"] == 2 and np.isfinite(out["psnr"])
 
 
 def test_bench_scene_needs_cuda_unless_told_cpu(no_cuda):

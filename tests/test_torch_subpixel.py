@@ -219,9 +219,9 @@ def grad_case(request):
 
     from ex4dgs_tpu.ops import rasterize_pallas as jrp
     from ex4dgs_tpu.ops import rasterize_tiled as jrt
-    from ex4dgs_tpu_torch.ops.binning import Binning
     from ex4dgs_tpu_torch.ops.projection import Projected
-    from torch_parity import jax_bin, jax_kernel_dot, jax_tiles, projected_scene, tt
+    from torch_parity import (jax_bin, jax_kernel_dot, jax_tiles, port_binning,
+                              projected_scene, tt)
 
     tile = request.param
     bg = (0.1, 0.1, 0.1)
@@ -244,7 +244,7 @@ def grad_case(request):
         pallas = loss_with(lambda *a, **k: jrp.rasterize_tiled_pallas(*a, interpret=True,
                                                                       **k))(*args)
     proj = Projected(*(tt(a) for a in j["proj"]))
-    binning = Binning(**{f: tt(getattr(bj, f)) for f in Binning._fields})
+    binning = port_binning(bj)
     as_np = lambda vg: (float(vg[0]), [np.asarray(g) for g in vg[1]])  # noqa: E731
     return dict(tile=tile, bg=bg, tgt=tgt, off=off, proj=proj, binning=binning,
                 args=[tt(a) for a in args], oracle=as_np(oracle), pallas=as_np(pallas))

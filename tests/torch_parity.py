@@ -60,6 +60,26 @@ def tt(x):
     return torch.as_tensor(np.array(x))
 
 
+def expansion_slots(order: torch.Tensor) -> torch.Tensor:
+    """Binning.slot of a binning without the tight cull, from its Gaussian
+    ids alone: a Gaussian's instances lie in distinct tiles, expanded in
+    tile order, so the expansion order is the stable sort of the ids, and
+    each sorted instance's expansion slot is that sort's inverse."""
+    by_gauss = torch.sort(order, stable=True).indices
+    slot = torch.empty_like(by_gauss)
+    slot[by_gauss] = torch.arange(by_gauss.shape[0])
+    return slot.to(torch.int32)
+
+
+def port_binning(bj):
+    """The JAX package's Binning (no tight cull) as the port's: its arrays,
+    and the port's own `slot` (expansion_slots)."""
+    from ex4dgs_tpu_torch.ops.binning import Binning
+
+    fields = {f: tt(getattr(bj, f)) for f in Binning._fields if f != "slot"}
+    return Binning(**fields, slot=expansion_slots(fields["order"]))
+
+
 def as_np(x):
     return x.numpy() if torch.is_tensor(x) else np.asarray(x)
 
@@ -142,7 +162,7 @@ def backward_inputs(j, capacity, tile, seed=11, scale=1e-3, offsets=None):
     bj = jax_bin(j["proj"], j["gx"], j["gy"], capacity)
     data_j, _ = jrp.pack_sorted(j["proj"], j["colors"], j["flow"], bj)
     proj = Projected(*(tt(a) for a in j["proj"]))
-    b = Binning(**{f: tt(getattr(bj, f)) for f in Binning._fields})
+    b = port_binning(bj)
     data_t, gid_t = trc.pack_sorted(proj, tt(j["colors"]), tt(j["flow"]), b)
     off_t = None if offsets is None else tt(offsets)
     accum, tfinal, _ = trc.composite_tiles_plain(

@@ -51,7 +51,6 @@ def main() -> None:
     torch.set_num_threads(4)
 
     from ex4dgs_tpu.data.readers import read_n3v_scene as jread
-    from ex4dgs_tpu.data.scene import ImagePrefetcher as JPrefetcher
     from ex4dgs_tpu.data.scene import Scene as JScene
     from ex4dgs_tpu.models import ModelConfig as JModelConfig
     from ex4dgs_tpu.models import OptimizationConfig as JOpt
@@ -69,7 +68,6 @@ def main() -> None:
         jcfg = JModelConfig(**{**SCENE, "source_path": root})
         jtr = JTrainer(jcfg, JOpt(**opt_kw), JScene(jcfg, scene_info=jread(root, jcfg)),
                        capacity=65536, max_per_tile=512, seed=args.seed)
-        jtr.prefetcher = JPrefetcher(native=False)  # PIL, as the port decodes
         jlog, jhost = [], jtr._host_event
 
         def jhost_event(fn):
