@@ -2,6 +2,7 @@
 paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only 16   # phase 16 and the inputs it needs
 
 Phases (any failure ends the script with a non-zero exit and no result line):
 
@@ -167,6 +168,34 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    bench offsets) below 1/255 by the plain version's arithmetic. Printed:
    the pairs in the tile ranges off and on, kernels A and B in turns on the
    two packed frames, and the bin and pack device ms.
+16. multi-GPU (on the one card): (1) the bench frame at t = 1 with its tile
+   rows in 2 and 4 slabs, run in turn in this process through
+   rendering.composite_projected_slabs at a capacity sized from the worst
+   slab (slabs x its total + 25%, bucketed): render, depth, flow, acc and
+   dominant index bit-equal to the unsharded frame, one launch of kernel A
+   per slab with the counters set to 0 before and read after; every slab
+   after the first (tile0 != 0) through kernel A against its plain version
+   as phase 3 holds it, and kernel B bit-equal to its twin and within
+   BWD_RTOL/BWD_ATOL of plain on seeded cotangents as phase 5 holds it;
+   both kernels on the whole frame's tiles from grid_x + 1 (a tile0 that
+   does not start a row) against the plain version and bit-equal to the
+   whole frame's launch; each slab's A and B CUDA-event times beside the
+   whole frame's. (2) torch.distributed on NCCL with one rank: the sharded
+   step at mesh (1, 1) from the bench state bit-equal (digest) to
+   train_step's, two steps from one state bit-equal, one launch of A and B
+   a step, timed by bench.py's recipe beside phase 8. (3) Two spawned ranks
+   on the card over gloo (NCCL refuses two ranks on one device), meshes
+   (1, 2) and (2, 1) on the bench state: each within tests/test_parallel.py's
+   tolerances of train_step (loss rtol 1e-4; per parameter 95% within rtol
+   2e-4 / atol 5e-5 and max |diff| < 2e-3; denom x data), the ranks'
+   models digest-equal, no overflow, one launch of A and of B per rank a
+   step; ms per step. (4) The training CLI as two ranks
+   (--mesh_data 2 --coordinator --num_processes --process_id
+   --dist_backend gloo) on phase 12's scene for 40 iterations of its
+   schedule (densify_and_prune at 30): the ranks' final checkpoints
+   digest-equal, finite falling losses, kernel launches as the schedule
+   implies, ms/iteration. Every spawned rank has a time limit and is
+   killed on failure.
 
 The lines before the last are the card's name and power limit (as
 nvidia-smi prints them) and a JSON object with one entry per kernel; the
@@ -1857,6 +1886,514 @@ def tight_cull_phase(dev, card: str) -> dict:
             "pairs": in_ranges, "bin_ms": bin_ms, "pack_ms": pack_ms}
 
 
+# Phase 16: the slab counts of the in-process slab check, the meshes of the
+# two gloo ranks on the one card, and the 2-rank trainer CLI's schedule
+# (TRAIN_SCHEDULE's: densify_and_prune at 30).
+SLAB_COUNTS = (2, 4)
+GLOO_MESHES = ((1, 2), (2, 1))
+CLI16_ITERS = 40
+RANK_TIMEOUT = 300  # seconds for a spawned job; its ranks are killed past it
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def worst_slab_capacity(proj, gx: int, gy: int, slabs: int, floor: int) -> tuple[int, list]:
+    """(capacity, per-slab instance totals): the sharded capacity sized from
+    the fullest slab (slabs x its total + 25%, bucketed to 65536, as the
+    trainer's growth policy rounds), at least `floor`."""
+    from ex4dgs_tpu_torch.models.state import round_capacity
+    from ex4dgs_tpu_torch.ops.binning import bin_gaussians
+
+    rows = -(-gy // slabs)
+    totals = [int(bin_gaussians(proj, gx, gy, 65536, row0=r * rows, rows=rows,
+                                total_tiles=gx * gy).total) for r in range(slabs)]
+    return max(floor, round_capacity(slabs * max(totals) * 5 // 4, 65536)), totals
+
+
+def slab_phase(dev, scene, whole_ms: dict, card: str) -> tuple[dict, dict]:
+    """16.1: the bench frame's tile rows in 2 and 4 slabs, run in turn in
+    this process. Returns (kernel fields, the sharded capacities by slab
+    count)."""
+    from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch.bench_frame import cotangents, cuda_ms, pack_frame
+    from ex4dgs_tpu_torch.models.temporal import point_data_at_t
+    from ex4dgs_tpu_torch.ops.binning import bin_gaussians
+    from ex4dgs_tpu_torch.ops.projection import tile_grid
+    from ex4dgs_tpu_torch.ops.rasterize_cuda import (bwd_errors, composite_tiles_bwd_plain,
+                                                     composite_tiles_bwd_walk,
+                                                     composite_tiles_plain, pack_sorted)
+    from ex4dgs_tpu_torch.rendering import (composite_projected, composite_projected_slabs,
+                                            preprocess_points)
+
+    model, cfg, cam, _total, capacity = scene
+    bg = torch.zeros(3, device=dev)
+    gx, gy = tile_grid(cam.width, cam.height)
+    fields = ("render", "depth", "opticalflow", "acc", "dominent_idxs")
+    errs = {"composite_fwd": 0.0, "composite_bwd": 0.0}
+    times = {"composite_fwd": {}, "composite_bwd": {}}
+    caps = {}
+    with torch.no_grad():
+        pts = point_data_at_t(model, cfg, 1.0)
+        proj, colors = preprocess_points(pts, cam, cfg, near=cfg.near, far=cfg.far)
+        flow = torch.zeros((proj.xy.shape[0], 3), device=dev)
+        ref = composite_projected(proj, colors, flow, cam, bg=bg, far=cfg.far,
+                                  capacity=capacity, track_idx=True)
+        for G in SLAB_COUNTS:
+            caps[G], totals = worst_slab_capacity(proj, gx, gy, G, capacity)
+            log(f"# slabs: G={G}, {-(-gy // G)} tile rows each: instances per slab {totals} "
+                f"(whole frame {int(ref.binning_total)}); worst-slab effective total "
+                f"{G * max(totals)}, sharded capacity {caps[G]} ({caps[G] // G} per slab)")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        outs = {G: composite_projected_slabs(proj, colors, flow, cam, bg=bg, far=cfg.far,
+                                             capacity=caps[G], axis_size=G, track_idx=True)
+                for G in SLAB_COUNTS}
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        for G, out in outs.items():
+            same = {f: torch.equal(getattr(out, f), getattr(ref, f)) for f in fields}
+            log(f"# slabs: G={G} frame bit-equal to the unsharded render: {same}; "
+                f"binning_total {int(out.binning_total)} <= {caps[G]}")
+            if not all(same.values()) or int(out.binning_total) > caps[G]:
+                fail(f"the {G}-slab frame differs from the unsharded render or overflows")
+        if launches != {**dict.fromkeys(launches, 0), "composite_fwd": sum(SLAB_COUNTS)}:
+            fail(f"slabs: launches {launches}, expected one of kernel A per slab")
+        del outs
+
+        # Each slab's tiles are the whole frame's tiles t0 .. t0 + L - 1 (the
+        # last slab's padding tiles past the grid are empty): kernel A's rows
+        # and, on the whole frame's cotangents, kernel B's columns must be the
+        # whole frame's launch's, bit for bit.
+        frame = pack_frame(scene)
+        kw = dict(grid_x=gx, tile_x=32, tile_y=16, track_idx=True)
+        whole = kernels.composite_fwd(frame.data, frame.gid, frame.starts, frame.stops, **kw)
+        cot = cotangents(whole[0])  # phase 5's cotangents of the bench frame
+        d_whole = kernels.composite_bwd(frame.data, frame.starts, frame.stops, *cot, whole[1],
+                                        grid_x=gx, tile_x=32, tile_y=16)
+        T = gx * gy
+        for G in SLAB_COUNTS:
+            rows = -(-gy // G)
+            L = rows * gx
+            for r in range(G):
+                b = bin_gaussians(proj, gx, gy, caps[G] // G, row0=r * rows, rows=rows,
+                                  total_tiles=T)
+                data, gid = pack_sorted(proj, colors, flow, b)
+                t0 = r * rows * gx
+                n = min(L, T - t0)  # the slab's tiles inside the grid
+                args = (data, gid, b.tile_start, b.tile_stop)
+                kw = dict(grid_x=gx, tile_x=32, tile_y=16, track_idx=True, tile0=t0)
+                got = kernels.composite_fwd(*args, **kw)
+                sliced = []
+                for c in cot:
+                    x = torch.zeros((L, *c.shape[1:]), device=dev)
+                    x[:n] = c[t0:t0 + n]
+                    sliced.append(x)
+                bargs = (data, b.tile_start, b.tile_stop, *sliced, got[1])
+                bkw = dict(grid_x=gx, tile_x=32, tile_y=16, tile0=t0)
+                d_k = kernels.composite_bwd(*bargs, **bkw)
+                lo, hi = int(b.tile_start[0]), int(b.tile_stop[-1])
+                ws, we = int(frame.starts[t0]), int(frame.stops[t0 + n - 1])
+                rows_equal = all(torch.equal(a[:n], w[t0:t0 + n]) for a, w in zip(got, whole))
+                cols_equal = (lo, hi - lo) == (0, we - ws) and torch.equal(
+                    d_k[:, lo:hi], d_whole[:, ws:we])
+                ms_a = cuda_ms(lambda: kernels.composite_fwd(*args, **kw), reps=20)
+                ms_b = cuda_ms(lambda: kernels.composite_bwd(*bargs, **bkw), reps=20)
+                times["composite_fwd"].setdefault(G, []).append(ms_a)
+                times["composite_bwd"].setdefault(G, []).append(ms_b)
+                note = (f"A rows bit-equal to the whole frame's launch {rows_equal}, B columns "
+                        f"on the whole frame's cotangents bit-equal to its {cols_equal}")
+                if not (rows_equal and cols_equal):
+                    fail(f"slab {r} of {G}: {note}")
+                if r == 0 or hi == lo:  # tile0 = 0 is phases 3 and 5's path
+                    continue
+                again = kernels.composite_fwd(*args, **kw)
+                note_a, ok_a, err_a = fwd_agreement(got, again, composite_tiles_plain(
+                    *args, **kw), cfg.far)
+                d_k2 = kernels.composite_bwd(*bargs, **bkw)
+                d_p = composite_tiles_bwd_plain(*bargs, **bkw)
+                # The floor of BWD_ATOL is the slab's largest gradient, not the
+                # frame's: where the plain version misses the limit against
+                # itself walked one instance at a time, hold B within
+                # HARD_FRAME_RATIO times that spread, as phase 12 does.
+                spread = None
+                if any(e[1] > 1 for e in bwd_errors(d_k, d_p, lo, hi).values()):
+                    spread = bwd_errors(composite_tiles_bwd_plain(*bargs, chunk=1, **bkw), d_p,
+                                        lo, hi)
+                note_b, ok_b, err_b = bwd_agreement(
+                    d_k, d_k2, d_p, composite_tiles_bwd_walk(*bargs, **bkw), lo, hi,
+                    spread=spread)
+                log(f"# slab {r} of {G} (tile0 {t0}, {hi - lo} instances): {note}; "
+                    f"composite_fwd vs plain: {note_a}; composite_bwd vs plain: {note_b}"
+                    + ("" if spread is None else "; the plain version at chunk=1 against "
+                       "itself, worst err/limit " + ", ".join(
+                           f"{k} {e[1]:.3g}" for k, e in spread.items())))
+                if not (ok_a and ok_b):
+                    fail(f"a kernel disagrees with its plain version on slab {r} of {G}")
+                errs["composite_fwd"] = max(errs["composite_fwd"], err_a)
+                errs["composite_bwd"] = max(errs["composite_bwd"], err_b)
+
+        # a first tile that does not start a row: the whole frame's tiles
+        # from grid_x + 1 against the plain version and the whole frame's launch
+        t0 = gx + 1
+        kw = dict(grid_x=gx, tile_x=32, tile_y=16, track_idx=True)
+        args = (frame.data, frame.gid, frame.starts[t0:].contiguous(),
+                frame.stops[t0:].contiguous())
+        got = kernels.composite_fwd(*args, tile0=t0, **kw)
+        again = kernels.composite_fwd(*args, tile0=t0, **kw)
+        note_a, ok_a, err_a = fwd_agreement(got, again, composite_tiles_plain(
+            *args, tile0=t0, **kw), cfg.far)
+        rows_equal = all(torch.equal(a, w[t0:]) for a, w in zip(got, whole))
+        bkw = dict(grid_x=gx, tile_x=32, tile_y=16)
+        bargs = (frame.data, args[2], args[3], *(a[t0:].contiguous() for a in (*cot, whole[1])))
+        d_k = kernels.composite_bwd(*bargs, tile0=t0, **bkw)
+        lo, hi = int(args[2][0]), int(args[3][-1])
+        berr = bwd_errors(d_k, composite_tiles_bwd_plain(*bargs, tile0=t0, **bkw), lo, hi)
+        cols_equal = torch.equal(d_k[:, lo:hi], d_whole[:, lo:hi])
+        log(f"# tiles from {t0} (not a row start; grid_x {gx}): composite_fwd vs plain: "
+            f"{note_a}; rows bit-equal to the whole frame's launch {rows_equal}; "
+            f"composite_bwd columns bit-equal to the whole frame's {cols_equal}, vs plain "
+            f"worst err/limit " + ", ".join(f"{k} {e[1]:.3g}" for k, e in berr.items()))
+        if not (ok_a and rows_equal and cols_equal and all(e[1] <= 1 for e in berr.values())):
+            fail("the kernels at a tile0 inside a row disagree")
+        errs["composite_fwd"] = max(errs["composite_fwd"], err_a)
+        errs["composite_bwd"] = max(errs["composite_bwd"], max(e[0] for e in berr.values()))
+    for name, by_g in times.items():
+        log(f"# slabs: {name} CUDA-event ms per slab " + "; ".join(
+            f"G={G} " + ", ".join(f"{t:.4f}" for t in ts) + f" (sum {sum(ts):.4f}, slowest "
+            f"{max(ts):.4f})" for G, ts in by_g.items())
+            + f"; whole frame {whole_ms[name]:.4f} ms (phases 3 and 5); {card}")
+    return {name: {"slab_launches": launches[name], "slab_max_abs_err": errs[name],
+                   "slab_ms": {str(G): ts for G, ts in times[name].items()}}
+            for name in errs}, caps
+
+
+def nccl_one_phase(dev, scene, train_ms: float, card: str) -> dict:
+    """16.2: the sharded step on a world of one rank over NCCL, at mesh
+    (1, 1), against train_step, and timed by bench.py's recipe. Returns the
+    kernels' launches in its checked steps."""
+    import torch.distributed as dist
+
+    from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch.io.checkpoint import digest
+    from ex4dgs_tpu_torch.models.config import OptimizationConfig
+    from ex4dgs_tpu_torch.models.density import pull
+    from ex4dgs_tpu_torch.models.optimizer import init_state
+    from ex4dgs_tpu_torch.parallel import make_mesh
+    from ex4dgs_tpu_torch.parallel.step_dp import make_sharded_train_step
+    from ex4dgs_tpu_torch.runtime.distributed import initialize
+    from ex4dgs_tpu_torch.train.step import StepStatics, train_step
+
+    model, cfg, cam, _total, capacity = scene
+    info = initialize(f"localhost:{free_port()}", 1, 0, device=dev, timeout=120)
+    try:
+        mesh = make_mesh(1, data=1, gauss=1, device=dev)
+        statics = StepStatics(cfg=cfg, opt=OptimizationConfig(), spatial_lr_scale=3.0,
+                              capacity=capacity)
+        gt = torch.zeros((cam.height, cam.width, 3), device=dev)
+        bg = torch.zeros(3, device=dev)
+        state = init_state(model.params, device=dev)
+        step = make_sharded_train_step(statics, mesh, device=dev)
+        ref = train_step(model, state, cam, gt, 1.0, bg, 100, statics, device=dev)
+        step(model, state, cam, gt, 1.0, bg, 100)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        a = step(model, state, cam, gt, 1.0, bg, 100)
+        b = step(model, state, cam, gt, 1.0, bg, 100)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        d_ref, d_a, d_b = (digest(pull(o.model, o.opt_state)) for o in (ref, a, b))
+        windows = []
+        for i in range(2):
+            step(model, state, cam, gt, float(i % 5), bg, 100)
+        torch.cuda.synchronize()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for i in range(20):
+                step(model, state, cam, gt, float(i % 5), bg, 100)
+            torch.cuda.synchronize()
+            windows.append((time.perf_counter() - t0) / 20 * 1e3)
+        backend = dist.get_backend()
+        torch.cuda.reset_peak_memory_stats()
+        report_profile("sharded step (1, 1) over NCCL, t=1",
+                       lambda: step(model, state, cam, gt, 1.0, bg, 100), card)
+    finally:
+        dist.destroy_process_group()
+    log(f"# sharded step, world 1 over {backend} ({info}), mesh (1, 1): bit-equal to "
+        f"train_step {d_a == d_ref}, two steps from one state bit-equal {d_a == d_b}; loss "
+        f"{a.loss.item():.6f} (train_step {ref.loss.item():.6f}); launches {launches}; "
+        f"{min(windows):.3f} ms/iteration by bench.py's recipe (windows "
+        + ", ".join(f"{w:.3f}" for w in windows) + f") against train_step's {train_ms:.3f} "
+        f"(phase 8); {card}")
+    if backend != ("nccl" if dev.type == "cuda" else "gloo") or d_a != d_ref or d_a != d_b:
+        fail("the NCCL (1, 1) sharded step is not train_step's, or not deterministic")
+    if launches != {**dict.fromkeys(launches, 0), "composite_fwd": 2, "composite_bwd": 2}:
+        fail(f"the (1, 1) sharded step launched {launches}, expected one A and one B a step")
+    return {"nccl_launches": launches, "nccl_ms": min(windows)}
+
+
+def _gloo_rank(rank: int, port: int, caps: dict, out_dir: str, device: str,
+               scene_fn) -> None:
+    """16.3, one of two ranks on the one card over gloo: the state of
+    scene_fn (the bench scene) through the sharded step at each of
+    GLOO_MESHES. Saves rank<r>.pt."""
+    import torch.distributed as dist
+
+    from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch.io.checkpoint import digest
+    from ex4dgs_tpu_torch.models.config import OptimizationConfig
+    from ex4dgs_tpu_torch.models.density import pull
+    from ex4dgs_tpu_torch.models.optimizer import init_state
+    from ex4dgs_tpu_torch.parallel import make_mesh
+    from ex4dgs_tpu_torch.parallel.step_dp import make_sharded_train_step, replicate
+    from ex4dgs_tpu_torch.runtime.distributed import initialize
+    from ex4dgs_tpu_torch.train.step import StepStatics
+
+    info = initialize(f"localhost:{port}", 2, rank, device=device, backend="gloo",
+                      timeout=RANK_TIMEOUT)
+    dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else \
+        torch.device(device)
+    model, cfg, cam, _total, _capacity = scene_fn(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    gt = torch.zeros((cam.height, cam.width, 3), device=dev)
+    bg = torch.zeros(3, device=dev)
+    results = {"info": info, "device": str(dev)}
+    for data, gauss in GLOO_MESHES:
+        mesh = make_mesh(2, data=data, gauss=gauss, device=dev)
+        m = replicate(model, mesh)
+        state = replicate(init_state(m.params, device=dev), mesh)
+        statics = StepStatics(cfg=cfg, opt=OptimizationConfig(), spatial_lr_scale=3.0,
+                              capacity=caps[gauss])
+        step = make_sharded_train_step(statics, mesh, device=dev)
+        step(m, state, cam, gt, 1.0, bg, 100)  # warm-up
+        sync()
+        kernels.reset_launches()
+        out = step(m, state, cam, gt, 1.0, bg, 100)
+        sync()
+        launches = dict(kernels.launches)
+        hm = pull(out.model, out.opt_state)
+        windows = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for i in range(5):
+                step(m, state, cam, gt, float(i % 5), bg, 100)
+            sync()
+            windows.append((time.perf_counter() - t0) / 5 * 1e3)
+        results[(data, gauss)] = dict(
+            params=hm.params, mu=hm.mu, denom=hm.stats["denom"], loss=float(out.loss),
+            total=int(out.binning_total), capacity=caps[gauss], nan=bool(out.nan_flag),
+            digest=digest(hm), launches=launches, windows=windows)
+    torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def run_ranks(target, n: int, args: tuple, timeout: int) -> None:
+    """target(rank, *args) on n spawned processes; fails (killing them all)
+    if one fails or any runs past `timeout` seconds."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, *args), daemon=True) for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        codes = [p.exitcode for p in procs]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    if codes != [0] * n:
+        fail(f"spawned ranks exited {codes} (None: killed at the {timeout} s limit)")
+
+
+def gloo_two_phase(dev, scene, scene_fn, caps: dict, train_ms: float, card: str,
+                   tmp: str) -> dict:
+    """16.3: two ranks on the one card over gloo, at meshes (1, 2) and
+    (2, 1), each held to train_step from the same state at
+    tests/test_parallel.py's tolerances and its gradient (the first step's
+    mu) at tests/test_torch_train.py's moment tolerance. Returns the kernels' launches in
+    the checked steps, summed over the ranks and meshes, and the step
+    times."""
+    from ex4dgs_tpu_torch.models.config import OptimizationConfig
+    from ex4dgs_tpu_torch.models.density import pull
+    from ex4dgs_tpu_torch.models.optimizer import init_state
+    from ex4dgs_tpu_torch.train.step import StepStatics, train_step
+
+    model, cfg, cam, _total, capacity = scene
+    statics = StepStatics(cfg=cfg, opt=OptimizationConfig(), spatial_lr_scale=3.0,
+                          capacity=capacity)
+    gt = torch.zeros((cam.height, cam.width, 3), device=dev)
+    ref_out = train_step(model, init_state(model.params, device=dev), cam, gt, 1.0,
+                         torch.zeros(3, device=dev), 100, statics, device=dev)
+    ref = pull(ref_out.model, ref_out.opt_state)
+    ref_loss = ref_out.loss.item()
+    del ref_out
+    out_dir = os.path.join(tmp, "gloo_ranks")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    run_ranks(_gloo_rank, 2, (free_port(), {1: capacity, 2: caps[2]}, out_dir, dev.type,
+                              scene_fn), RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    launches = {"composite_fwd": 0, "composite_bwd": 0}
+    ms = {}
+    for mesh in GLOO_MESHES:
+        outs = [rk[mesh] for rk in ranks]
+        o = outs[0]
+        worst, mu_err = {}, {}
+        ok = True
+        for k, v in o["params"].items():
+            if v.size == 0:
+                continue
+            close = np.isclose(v, ref.params[k], rtol=2e-4, atol=5e-5).mean()
+            dmax = float(np.abs(v - ref.params[k]).max())
+            worst[k] = (close, dmax)
+            ok &= close > 0.95 and dmax < 2e-3
+            # The first step's mu is 0.1 x its gradient; the parameters
+            # alone would pass a gradient off by a small factor (the first
+            # RAdam step moves them by lr x gradient). Held at
+            # tests/test_torch_train.py's moment tolerance.
+            want_mu = ref.mu[k]
+            mu_atol = 1e-5 * float(np.abs(want_mu).max())
+            mu_diff = np.abs(o["mu"][k] - want_mu)
+            mu_err[k] = float(mu_diff.max())
+            ok &= bool((mu_diff <= mu_atol + 1e-5 * np.abs(want_mu)).all())
+        loss_ok = abs(o["loss"] - ref_loss) <= 1e-4 * abs(ref_loss)
+        denom_ok = np.allclose(o["denom"], ref.stats["denom"] * mesh[0], atol=1e-5)
+        same = len({x["digest"] for x in outs}) == 1
+        want = {"composite_fwd": 1, "composite_bwd": 1}
+        launch_ok = all(x["launches"] == {**dict.fromkeys(x["launches"], 0), **want}
+                        for x in outs)
+        for x in outs:
+            for name in launches:
+                launches[name] += x["launches"][name]
+        ms[f"{mesh[0]}x{mesh[1]}"] = min(min(x["windows"]) for x in outs)
+        log(f"# gloo, 2 ranks on {ranks[0]['device']} ({ranks[0]['info']}), mesh {mesh}: "
+            f"loss {o['loss']:.6f} vs train_step {ref_loss:.6f} (rtol 1e-4) {loss_ok}; params "
+            f"(share within rtol 2e-4/atol 5e-5, max |diff|) "
+            + ", ".join(f"{k} {c:.4f} {d:.3g}" for k, (c, d) in worst.items())
+            + "; mu (the gradient; rtol 1e-5, atol 1e-5 of max |mu|) max |diff| "
+            + ", ".join(f"{k} {e:.3g}" for k, e in mu_err.items())
+            + f"; denom x{mesh[0]} {denom_ok}; ranks digest-equal {same}; binning_total "
+            f"{o['total']} <= capacity {o['capacity']}; launches per rank "
+            f"{[x['launches'] for x in outs]}; ms/iteration (best of 3 windows of 5, each "
+            f"rank) {[round(min(x['windows']), 3) for x in outs]} against train_step's "
+            f"{train_ms:.3f} (phase 8); {card}")
+        if not (ok and loss_ok and denom_ok and same and launch_ok):
+            fail(f"the gloo sharded step at mesh {mesh} disagrees with train_step")
+        if any(x["total"] > x["capacity"] or x["nan"] for x in outs):
+            fail(f"the gloo sharded step at mesh {mesh} overflowed or raised the NaN flag")
+    log(f"# gloo phase: {wall:.1f} s for both ranks (start-up, bench scene, both meshes)")
+    return {"gloo_launches": launches, "gloo_ms": ms}
+
+
+def cli_two_phase(dev, scene_dir: str, card: str, tmp: str) -> dict:
+    """16.4: the training CLI as two ranks on the one card over gloo,
+    --mesh_data 2, on phase 12's scene for CLI16_ITERS iterations. Returns
+    rank 0's launches."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(root, "configs", "N3V", "n3v_base.json")
+    out = os.path.join(tmp, "model16")
+    port = free_port()
+    base = [sys.executable, "-m", "ex4dgs_tpu_torch.train", "--config", config,
+            "--source_path", scene_dir, "--model_path", out, "--quiet", *TRAIN_SCHEDULE,
+            "--iterations", str(CLI16_ITERS), "--mesh_data", "2", "--mesh_gauss", "1",
+            "--coordinator", f"localhost:{port}", "--num_processes", "2",
+            "--dist_backend", "gloo", *(["--device", "cpu"] if dev.type == "cpu" else [])]
+    logs = [open(os.path.join(tmp, f"cli16_rank{r}.log"), "w+") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(base + ["--process_id", str(r)], cwd=root, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        codes = [p.wait(timeout=RANK_TIMEOUT) for p in procs]
+    except subprocess.TimeoutExpired:
+        codes = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if codes != [0, 0]:
+        for f in logs:
+            f.seek(0)
+            log(f.read()[-4000:])
+        fail(f"the 2-rank training CLI exited {codes}")
+    with open(os.path.join(out, "train_report.json")) as f:
+        report = json.load(f)
+    report["wall_s"] = wall
+    trainer_report_lines(f"2-rank trainer CLI (--mesh_data 2, gloo, {CLI16_ITERS} "
+                         f"iterations, rank 0's report)", report, card)
+    digests = report["rank_digests"][str(CLI16_ITERS)]
+    losses = np.asarray(report["loss"])
+    early, late = losses[:10].mean(), losses[-10:].mean()
+    log(f"# 2-rank trainer CLI: {report['distributed']}, mesh {report['mesh']}; rank "
+        f"digests at {CLI16_ITERS} equal {len(set(digests)) == 1} ({digests[0][:16]}); loss "
+        f"{early:.6f} (first 10) -> {late:.6f} (last 10); events {report['event_counts']}")
+    if len(digests) != 2 or len(set(digests)) != 1:
+        fail("the 2-rank trainer's ranks ended with different models")
+    if not (np.isfinite(losses).all() and late < early):
+        fail("the 2-rank trainer's losses are not finite or did not fall")
+    if report["event_counts"].get("densify_and_prune", 0) < 1:
+        fail("the 2-rank trainer crossed no density event")
+    check_launches("2-rank trainer CLI, rank 0", report)
+    return {name: report["kernel_launches"][name] for name in ("composite_fwd",
+                                                              "composite_bwd")}
+
+
+def multi_gpu_phase(dev, whole_ms: dict, train_ms: float, scene_dir: str, card: str,
+                    tmp: str, scene_fn=None) -> dict:
+    """Phase 16: 16.1 slabs in one process, 16.2 NCCL world 1, 16.3 two
+    gloo ranks on the card, 16.4 the 2-rank trainer CLI, on scene_fn's
+    scene (default the bench scene) and phase 12's scene_dir. Returns the
+    kernels' fields for the kernels line."""
+    from ex4dgs_tpu_torch.bench_frame import bench_scene
+
+    scene_fn = scene_fn or bench_scene
+    scene = scene_fn(dev)
+    t = [time.perf_counter()]
+
+    def mark():
+        t.append(time.perf_counter())
+        return t[-1] - t[-2]
+
+    slabs, caps = slab_phase(dev, scene, whole_ms, card)
+    s1 = mark()
+    nccl = nccl_one_phase(dev, scene, train_ms, card)
+    s2 = mark()
+    gloo = gloo_two_phase(dev, scene, scene_fn, caps, train_ms, card, tmp)
+    s3 = mark()
+    del scene
+    torch.cuda.empty_cache()
+    cli = cli_two_phase(dev, scene_dir, card, tmp)
+    s4 = mark()
+    log(f"# phase 16 parts (s): slabs {s1:.1f}, NCCL world 1 {s2:.1f}, gloo 2 ranks {s3:.1f}, "
+        f"2-rank CLI {s4:.1f}")
+    out = {}
+    for name in ("composite_fwd", "composite_bwd"):
+        out[name] = {**slabs[name], "nccl_launches": nccl["nccl_launches"][name],
+                     "gloo_launches": gloo["gloo_launches"][name], "cli16_launches": cli[name],
+                     "multi_gpu_launches": (slabs[name]["slab_launches"]
+                                            + nccl["nccl_launches"][name]
+                                            + gloo["gloo_launches"][name] + cli[name])}
+    out["composite_bwd"].update(nccl_step_ms=nccl["nccl_ms"], gloo_step_ms=gloo["gloo_ms"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -2171,11 +2708,12 @@ def main() -> int:
     phase_done(11)
     del scene, model, state, m, st, out
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="ex4dgs_phase12_") as tmp:
-        trainer, model_dir, trained = trainer_phase(dev, card, tmp)
-        phase_done(12)
-        evaluation = eval_phase(dev, model_dir, trained, fps, card)
-        phase_done(13)
+    # phase 12's scene is trained on again by phase 16
+    tmp12 = tempfile.TemporaryDirectory(prefix="ex4dgs_phase12_")
+    trainer, model_dir, trained = trainer_phase(dev, card, tmp12.name)
+    phase_done(12)
+    evaluation = eval_phase(dev, model_dir, trained, fps, card)
+    phase_done(13)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="ex4dgs_phase14_") as tmp:
         quality = quality_phase(dev, card, tmp)
@@ -2183,6 +2721,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     cull = tight_cull_phase(dev, card)
     phase_done(15)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="ex4dgs_phase16_") as tmp:
+        multi = multi_gpu_phase(dev, {"composite_fwd": ms, "composite_bwd": ms_b}, train_ms,
+                                os.path.join(tmp12.name, "scene"), card, tmp)
+    tmp12.cleanup()
+    phase_done(16)
     log("# phase times (s): " + ", ".join(f"{n} {t:.1f}" for n, t in phase_s)
         + f"; total {sum(t for _, t in phase_s):.1f}")
 
@@ -2199,7 +2743,8 @@ def main() -> int:
                      + evaluation["composite_fwd"]["viewer_launches"]
                      + evaluation["composite_fwd"]["surface_launches"]
                      + quality["composite_fwd"]["quality_launches"]
-                     + cull["composite_fwd"]["tight_cull_launches"]),
+                     + cull["composite_fwd"]["tight_cull_launches"]
+                     + multi["composite_fwd"]["multi_gpu_launches"]),
         **trainer["composite_fwd"],
         **evaluation["composite_fwd"],
         **quality["composite_fwd"],
@@ -2211,6 +2756,7 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
         **sub["composite_fwd"],
+        **multi["composite_fwd"],
     }, {
         "name": "composite_bwd",
         "route": "cuda",
@@ -2220,7 +2766,8 @@ def main() -> int:
                      + trainer["composite_bwd"]["trainer_launches"]
                      + evaluation["composite_bwd"]["viewer_launches"]
                      + quality["composite_bwd"]["quality_launches"]
-                     + cull["composite_bwd"]["tight_cull_launches"]),
+                     + cull["composite_bwd"]["tight_cull_launches"]
+                     + multi["composite_bwd"]["multi_gpu_launches"]),
         **trainer["composite_bwd"],
         **evaluation["composite_bwd"],
         **quality["composite_bwd"],
@@ -2232,6 +2779,7 @@ def main() -> int:
         "bound_by": bound_by_b,
         "library_ms": None,
         **sub["composite_bwd"],
+        **multi["composite_bwd"],
     }, *probe_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2239,5 +2787,59 @@ def main() -> int:
     return 0
 
 
+def multi_gpu_alone() -> int:
+    """Phase 16 alone (`python3 chip_smoke.py --only 16`), with the inputs
+    it takes from earlier phases made the same way: the kernels built,
+    kernels A and B and train_step timed on the bench frame, phase 12's
+    scene written. For comparing two trees' multi-GPU paths in one call."""
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures the port on a GPU")
+    from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch.bench_frame import (bench_scene, cotangents, cuda_ms, pack_frame,
+                                              write_n3v_scene)
+    from ex4dgs_tpu_torch.models.config import OptimizationConfig
+    from ex4dgs_tpu_torch.models.optimizer import init_state
+    from ex4dgs_tpu_torch.train.step import StepStatics, train_step
+
+    dev = torch.device("cuda")
+    card = card_line()
+    kernels.load_all()
+    scene = bench_scene(dev)
+    f = pack_frame(scene)
+    kw = dict(grid_x=f.grid_x, tile_x=32, tile_y=16, track_idx=True)
+    acc, tf, _ = kernels.composite_fwd(f.data, f.gid, f.starts, f.stops, **kw)
+    ms_a = cuda_ms(lambda: kernels.composite_fwd(f.data, f.gid, f.starts, f.stops, **kw), 20)
+    bargs = (f.data, f.starts, f.stops, *cotangents(acc), tf)
+    ms_b = cuda_ms(lambda: kernels.composite_bwd(*bargs, grid_x=f.grid_x, tile_x=32,
+                                                 tile_y=16), 20)
+    model, cfg, cam, _total, capacity = scene
+    statics = StepStatics(cfg=cfg, opt=OptimizationConfig(), spatial_lr_scale=3.0,
+                          capacity=capacity)
+    gt = torch.zeros((cam.height, cam.width, 3), device=dev)
+    bg = torch.zeros(3, device=dev)
+    state = init_state(model.params, device=dev)
+    windows = []
+    for n in (2, 20, 20, 20):  # bench.py's recipe: warm-up, then the best of 3 windows
+        t0 = time.perf_counter()
+        for i in range(n):
+            train_step(model, state, cam, gt, float(i % 5), bg, 100, statics, device=dev)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / n * 1e3)
+    train_ms = min(windows[1:])
+    log(f"# whole frame A {ms_a:.4f} ms, B {ms_b:.4f} ms, train_step {train_ms:.3f} "
+        f"ms/iteration; {card}")
+    del scene, f, acc, tf, bargs, model, state
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "scene")
+        write_n3v_scene(root, n_cams=4, n_frames=8, n_points=100_000, seed=0)
+        t0 = time.perf_counter()
+        out = multi_gpu_phase(dev, {"composite_fwd": ms_a, "composite_bwd": ms_b}, train_ms,
+                              root, card, tmp)
+        log(f"# phase 16 {time.perf_counter() - t0:.1f} s")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(multi_gpu_alone() if sys.argv[1:] == ["--only", "16"] else main())

@@ -22,7 +22,11 @@
 // Instances the tile never reaches (every pixel latched) and columns outside
 // every range keep the zeros the wrapper fills in. With the forward's
 // subpixel offsets off[T, P, 2] (null: none), the pixel is its centre plus
-// off[t, p], one rounded add per coordinate, as in the forward.
+// off[t, p], one rounded add per coordinate, as in the forward. Block t
+// walks the grid's tile tile0 + t (the JAX kernel's tids[t],
+// rasterize_pallas.py:760), as the forward: the global index sets the pixels
+// and the warp boxes, the local t indexes starts, stops, the offsets and the
+// cotangents.
 //
 // Design: one thread block per tile, one thread per pixel, as the forward.
 // The block stages a batch of 32 instances in shared memory, every pixel
@@ -148,7 +152,7 @@ composite_bwd_kernel(const float* __restrict__ data, const int32_t* __restrict__
                      const float* __restrict__ gacc,
                      const float* __restrict__ acdot, const float* __restrict__ gend,
                      const float* __restrict__ tfinal, float* __restrict__ dgrad,
-                     long long capacity, int grid_x, int tile_x, int tile_y) {
+                     long long capacity, int tile0, int grid_x, int tile_x, int tile_y) {
   // s4[g * kBatch + c]: rows 4g .. 4g + 3 of instance c of the batch;
   // s_part[(w * kBatch + c) * kPartStride + r]: warp w's sum of row r for
   // instance c, valid where bit c of s_mask[w] is set.
@@ -158,12 +162,13 @@ composite_bwd_kernel(const float* __restrict__ data, const int32_t* __restrict__
   const int nwarps = npix >> 5;
   unsigned* s_mask = reinterpret_cast<unsigned*>(s_part + nwarps * kBatch * kPartStride);
 
-  const int tile = blockIdx.x;
+  const int tile = blockIdx.x;  // local: starts, stops, offsets, cotangents
+  const int gtile = tile0 + tile;  // global: the pixels
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
-  const int tx0 = (tile % grid_x) * tile_x;
-  const int ty0 = (tile / grid_x) * tile_y;
+  const int tx0 = (gtile % grid_x) * tile_x;
+  const int ty0 = (gtile / grid_x) * tile_y;
   const long long o = static_cast<long long>(tile) * npix + p;
   float px = static_cast<float>(tx0 + p % tile_x);
   float py = static_cast<float>(ty0 + p / tile_x);
@@ -291,7 +296,7 @@ template <bool kSubpixel>
 cudaError_t launch(const void* data, const void* starts, const void* stops,
                    const void* offsets, const void* gacc, const void* acdot, const void* gend,
                    const void* tfinal, void* dgrad, long long capacity, int num_tiles,
-                   int grid_x, int tile_x, int tile_y, cudaStream_t stream) {
+                   int tile0, int grid_x, int tile_x, int tile_y, cudaStream_t stream) {
   const int npix = tile_x * tile_y;
   const int nwarps = npix / 32;
   const size_t smem = sizeof(float4) * ex4dgs::kStageGroups * kBatch +
@@ -306,22 +311,22 @@ cudaError_t launch(const void* data, const void* starts, const void* stops,
       static_cast<const int32_t*>(stops), static_cast<const float2*>(offsets),
       static_cast<const float*>(gacc), static_cast<const float*>(acdot),
       static_cast<const float*>(gend), static_cast<const float*>(tfinal),
-      static_cast<float*>(dgrad), capacity, grid_x, tile_x, tile_y);
+      static_cast<float*>(dgrad), capacity, tile0, grid_x, tile_x, tile_y);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // offsets: the forward's f32 [T, P, 2], or null for pixel centres on the
-// integer grid.
+// integer grid. tile0: the grid index of the first tile (0 for a whole frame).
 extern "C" int composite_bwd(const void* data, const void* starts, const void* stops,
                              const void* offsets, const void* gacc, const void* acdot,
                              const void* gend, const void* tfinal, void* dgrad,
-                             long long capacity, int num_tiles, int grid_x, int tile_x,
-                             int tile_y, void* stream) {
+                             long long capacity, int num_tiles, int tile0, int grid_x,
+                             int tile_x, int tile_y, void* stream) {
   const auto run = offsets ? launch<true> : launch<false>;
   return static_cast<int>(run(data, starts, stops, offsets, gacc, acdot, gend, tfinal, dgrad,
-                              capacity, num_tiles, grid_x, tile_x, tile_y,
+                              capacity, num_tiles, tile0, grid_x, tile_x, tile_y,
                               static_cast<cudaStream_t>(stream)));
 }
 

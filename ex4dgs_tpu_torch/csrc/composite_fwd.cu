@@ -14,6 +14,12 @@
 // evaluated at its centre plus off[t, p], one rounded add per coordinate
 // (the JAX kernel's pixel + offset, rasterize_pallas.py:464-467).
 //
+// Block t composites the grid's tile tile0 + t (the JAX kernel's tile id
+// tids[t], rasterize_pallas.py:456-458, which is t0 + arange on a slab of a
+// tile-sharded frame and arange on a whole one): the global index sets the
+// pixel coordinates and the warp boxes; starts, stops, the offsets and the
+// outputs are indexed by the local t.
+//
 // Outputs per tile t and pixel p (p = y * tile_x + x in tile-local order):
 //   accum[t, p, 0:8]  sum of w * (r, g, b, depth, fx, fy, fz, 1) (data rows 6-13)
 //   tfinal[t, p]      T after the last applied sample (1 if none applied)
@@ -82,19 +88,20 @@ composite_fwd_kernel(const float* __restrict__ data, const int32_t* __restrict__
                      const int32_t* __restrict__ starts, const int32_t* __restrict__ stops,
                      const float2* __restrict__ offsets, float* __restrict__ accum,
                      float* __restrict__ tfinal,
-                     int32_t* __restrict__ bestidx, long long capacity, int grid_x,
-                     int tile_x, int tile_y, int track_idx) {
+                     int32_t* __restrict__ bestidx, long long capacity, int tile0,
+                     int grid_x, int tile_x, int tile_y, int track_idx) {
   // s4[g * kBatch + c]: rows 4g .. 4g + 3 of instance c of the batch; at the
   // end, the dense store's staging buffer.
   extern __shared__ float4 s4[];
   __shared__ int32_t s_gid[kBatch];
 
-  const int tile = blockIdx.x;
+  const int tile = blockIdx.x;  // local: starts, stops, offsets, outputs
+  const int gtile = tile0 + tile;  // global: the pixels
   const int npix = blockDim.x;
   const int p = threadIdx.x;
   const int lane = p & 31;
-  const int tx0 = (tile % grid_x) * tile_x;
-  const int ty0 = (tile / grid_x) * tile_y;
+  const int tx0 = (gtile % grid_x) * tile_x;
+  const int ty0 = (gtile / grid_x) * tile_y;
   // Pixel centres are exact integers in float; mean - pixel is then one
   // rounding, the same subtraction the plain version performs. An offset
   // pixel is the rounded centre + offset, as in the plain version.
@@ -189,7 +196,7 @@ composite_fwd_kernel(const float* __restrict__ data, const int32_t* __restrict__
 template <bool kSubpixel>
 void launch(const void* data, const void* gid, const void* starts, const void* stops,
             const void* offsets, void* accum, void* tfinal, void* bestidx, long long capacity,
-            int num_tiles, int grid_x, int tile_x, int tile_y, int track_idx,
+            int num_tiles, int tile0, int grid_x, int tile_x, int tile_y, int track_idx,
             cudaStream_t stream) {
   const int npix = tile_x * tile_y;
   // The staging buffer: the batch, or the dense store's P float4 pairs.
@@ -198,21 +205,22 @@ void launch(const void* data, const void* gid, const void* starts, const void* s
       static_cast<const float*>(data), static_cast<const int32_t*>(gid),
       static_cast<const int32_t*>(starts), static_cast<const int32_t*>(stops),
       static_cast<const float2*>(offsets), static_cast<float*>(accum),
-      static_cast<float*>(tfinal), static_cast<int32_t*>(bestidx), capacity, grid_x, tile_x,
-      tile_y, track_idx);
+      static_cast<float*>(tfinal), static_cast<int32_t*>(bestidx), capacity, tile0, grid_x,
+      tile_x, tile_y, track_idx);
 }
 
 }  // namespace
 
 // offsets: f32 [T, P, 2], or null for pixel centres on the integer grid.
+// tile0: the grid index of the first tile (0 for a whole frame).
 extern "C" int composite_fwd(const void* data, const void* gid, const void* starts,
                              const void* stops, const void* offsets, void* accum,
                              void* tfinal, void* bestidx, long long capacity, int num_tiles,
-                             int grid_x, int tile_x, int tile_y, int track_idx,
+                             int tile0, int grid_x, int tile_x, int tile_y, int track_idx,
                              void* stream) {
   const auto run = offsets ? launch<true> : launch<false>;
-  run(data, gid, starts, stops, offsets, accum, tfinal, bestidx, capacity, num_tiles, grid_x,
-      tile_x, tile_y, track_idx, static_cast<cudaStream_t>(stream));
+  run(data, gid, starts, stops, offsets, accum, tfinal, bestidx, capacity, num_tiles, tile0,
+      grid_x, tile_x, tile_y, track_idx, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

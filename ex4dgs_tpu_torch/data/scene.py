@@ -310,6 +310,11 @@ class ImagePrefetcher:
             return self._cache_put(cam, img)
         return img
 
+    def load(self, cam: Camera) -> torch.Tensor:
+        """One camera's frame on the device, through the cache, with no
+        look-ahead (a sharded trainer's rank loads only its own camera)."""
+        return self._result(self._submit(cam), cam)
+
     def epoch(self, cameras: list[Camera], shuffle: bool = True, rng=None):
         cams = list(cameras)
         if shuffle:

@@ -47,7 +47,8 @@ from pathlib import Path
 import torch
 
 from . import kernels
-from .bench_frame import bench_offsets, bench_scene, cotangents, cuda_ms, pack_frame
+from .bench_frame import (PROBE_CAPACITY, bench_offsets, bench_scene, cotangents, cuda_ms,
+                          pack_frame)
 from .ops.rasterize_cuda import (BWD_ATOL, BWD_RTOL, TF_RTOL, bwd_errors,
                                  composite_tiles_bwd_plain, composite_tiles_plain,
                                  tfinal_rel_err, tile_offsets)
@@ -114,7 +115,7 @@ def _fwd_runs(frame, tile, offsets, others, dev):
         return dict(data=data.data_ptr(), gid=gid.data_ptr(), starts=starts.data_ptr(),
                     stops=stops.data_ptr(), offsets=_ptr(offsets), accum=outs[0].data_ptr(),
                     tfinal=outs[1].data_ptr(), bestidx=outs[2].data_ptr(), capacity=cap,
-                    num_tiles=T, grid_x=gx, tile_x=tx, tile_y=ty, track_idx=1)
+                    num_tiles=T, tile0=0, grid_x=gx, tile_x=tx, tile_y=ty, track_idx=1)
 
     runs = {"committed": lambda: kernels.composite_fwd(data, gid, starts, stops, **kw)}
     runs.update({name: _launcher(bound, make_outs, values) for name, bound in others})
@@ -146,7 +147,7 @@ def _bwd_runs(frame, tile, offsets, others, dev):
     def values(outs):
         names = ("data", "starts", "stops", "gacc", "acdot", "gend", "tfinal")
         return dict(zip(names, (t.data_ptr() for t in bargs)), offsets=_ptr(offsets),
-                    dgrad=outs[0].data_ptr(), capacity=cap, num_tiles=T, grid_x=gx,
+                    dgrad=outs[0].data_ptr(), capacity=cap, num_tiles=T, tile0=0, grid_x=gx,
                     tile_x=tx, tile_y=ty)
 
     runs = {"committed": lambda: (kernels.composite_bwd(*bargs, **kw),)}
@@ -195,7 +196,8 @@ def main(argv=None) -> int:
     mode = "with subpixel offsets" if args.offsets else "without offsets"
     ok = True
     for tx, ty in TILES:
-        frame = pack_frame(scene, tx, ty)
+        frame = pack_frame(scene, tx, ty,
+                           capacity=None if (tx, ty) == (32, 16) else PROBE_CAPACITY)
         n_inst = int(frame.stops[-1] - frame.starts[0])
         T = frame.starts.shape[0]
         offsets = (None if off_img is None else

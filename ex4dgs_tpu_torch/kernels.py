@@ -48,13 +48,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # data, gid, starts, stops, offsets, accum, tfinal, bestidx, capacity,
-    # num_tiles, grid_x, tile_x, tile_y, track_idx, stream
+    # num_tiles, tile0, grid_x, tile_x, tile_y, track_idx, stream
     "composite_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I,
-                      _P],
+                      _I, _P],
     # data, starts, stops, offsets, gacc, acdot, gend, tfinal, dgrad, capacity,
-    # num_tiles, grid_x, tile_x, tile_y, stream
+    # num_tiles, tile0, grid_x, tile_x, tile_y, stream
     "composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I,
-                      _P],
+                      _I, _P],
     # src, offsets, out, n, num_windows, stream
     "probe_unaligned": [_P, _P, _P, ctypes.c_longlong, _I, _P],
     "outspec_a": [_P, _P, _P, _I, _P],  # accum, tfinal, bestidx, num_tiles, stream
@@ -180,6 +180,12 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device)
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_tile0(tile0: int, num_tiles: int) -> None:
+    """tile0 must be a non-negative int whose last tile fits an int."""
+    if not isinstance(tile0, int) or tile0 < 0 or tile0 + num_tiles >= 2**31:
+        raise ValueError(f"tile0 must be an int in [0, 2^31 - T), got {tile0!r}")
+
+
 def _offsets_ptr(offsets, num_tiles: int, npix: int, dev):
     """The subpixel offsets' pointer (None: the kernel's null path) after
     checking them: f32 [T, P, 2], contiguous, on dev."""
@@ -191,13 +197,15 @@ def _offsets_ptr(offsets, num_tiles: int, npix: int, dev):
 
 def composite_fwd(data: torch.Tensor, gid: torch.Tensor, starts: torch.Tensor,
                   stops: torch.Tensor, *, grid_x: int, tile_x: int, tile_y: int,
-                  track_idx: bool, offsets: torch.Tensor | None = None):
+                  track_idx: bool, offsets: torch.Tensor | None = None, tile0: int = 0):
     """Launch csrc/composite_fwd.cu on CUDA tensors: data f32 [16, capacity],
     gid i32 [capacity], starts/stops i32 [T], and optionally the per-pixel
-    subpixel offsets f32 [T, P, 2]. Returns (accum f32 [T, P, 8], tfinal
-    f32 [T, P, 1], bestidx i32 [T, P, 1]) with P = tile_x * tile_y,
-    computed on the current stream. Raises on anything the kernel does not
-    take, and when the launch fails."""
+    subpixel offsets f32 [T, P, 2]. Tile t is the grid's tile tile0 + t
+    (a scalar: the JAX kernel's tile ids are always arange or t0 + arange).
+    Returns (accum f32 [T, P, 8], tfinal f32 [T, P, 1], bestidx i32
+    [T, P, 1]) with P = tile_x * tile_y, computed on the current stream.
+    Raises on anything the kernel does not take, and when the launch
+    fails."""
     dev = data.device
     capacity = data.shape[1] if data.dim() == 2 else -1
     num_tiles = starts.shape[0] if starts.dim() == 1 else -1
@@ -210,6 +218,7 @@ def composite_fwd(data: torch.Tensor, gid: torch.Tensor, starts: torch.Tensor,
     if not (0 < npix <= 1024 and npix % 32 == 0):
         raise ValueError(f"tile {tile_x}x{tile_y}: one thread per pixel needs an area "
                          "that is a multiple of 32 and at most 1024")
+    _check_tile0(tile0, num_tiles)
     if dev.type != "cuda":
         raise ValueError(f"composite_fwd runs on CUDA tensors, got {dev}")
     accum = torch.empty((num_tiles, npix, 8), dtype=torch.float32, device=dev)
@@ -219,17 +228,19 @@ def composite_fwd(data: torch.Tensor, gid: torch.Tensor, starts: torch.Tensor,
         return accum, tfinal, bestidx
     _launch("composite_fwd", "composite_fwd", dev, data.data_ptr(), gid.data_ptr(),
             starts.data_ptr(), stops.data_ptr(), off, accum.data_ptr(), tfinal.data_ptr(),
-            bestidx.data_ptr(), capacity, num_tiles, grid_x, tile_x, tile_y, int(track_idx))
+            bestidx.data_ptr(), capacity, num_tiles, tile0, grid_x, tile_x, tile_y,
+            int(track_idx))
     return accum, tfinal, bestidx
 
 
 def composite_bwd(data: torch.Tensor, starts: torch.Tensor, stops: torch.Tensor,
                   gacc: torch.Tensor, acdot: torch.Tensor, gend: torch.Tensor,
                   tfinal: torch.Tensor, *, grid_x: int, tile_x: int, tile_y: int,
-                  offsets: torch.Tensor | None = None):
+                  offsets: torch.Tensor | None = None, tile0: int = 0):
     """Launch csrc/composite_bwd.cu on CUDA tensors: data f32 [16, capacity],
     starts/stops i32 [T], gacc f32 [T, P, 8], acdot/gend/tfinal f32
-    [T, P, 1], and optionally the forward's subpixel offsets f32 [T, P, 2].
+    [T, P, 1], optionally the forward's subpixel offsets f32 [T, P, 2], and
+    the forward's tile0 (tile t is the grid's tile tile0 + t).
     Returns dgrad f32 [16, capacity] (zero outside every tile's range),
     computed on the current stream. Raises on anything the kernel does not
     take, and when the launch fails."""
@@ -247,6 +258,7 @@ def composite_bwd(data: torch.Tensor, starts: torch.Tensor, stops: torch.Tensor,
     if not (0 < npix <= 1024 and npix % 32 == 0):
         raise ValueError(f"tile {tile_x}x{tile_y}: one thread per pixel needs an area "
                          "that is a multiple of 32 and at most 1024")
+    _check_tile0(tile0, num_tiles)
     if dev.type != "cuda":
         raise ValueError(f"composite_bwd runs on CUDA tensors, got {dev}")
     # Zero-filled here: the kernel writes only the instances its tiles walk
@@ -256,7 +268,8 @@ def composite_bwd(data: torch.Tensor, starts: torch.Tensor, stops: torch.Tensor,
         return dgrad
     _launch("composite_bwd", "composite_bwd", dev, data.data_ptr(), starts.data_ptr(),
             stops.data_ptr(), off, gacc.data_ptr(), acdot.data_ptr(), gend.data_ptr(),
-            tfinal.data_ptr(), dgrad.data_ptr(), capacity, num_tiles, grid_x, tile_x, tile_y)
+            tfinal.data_ptr(), dgrad.data_ptr(), capacity, num_tiles, tile0, grid_x, tile_x,
+            tile_y)
     return dgrad
 
 

@@ -23,6 +23,15 @@ its whole tile is sent to the sentinel tile before the sort: it keeps its
 slot and sorts past the last tile, `total` is unchanged, and only the
 tiles' ranges shrink. The bound is JAX's operation for operation, so both
 packages cull the same instances.
+
+Slab mode (`row0`, `rows`, `total_tiles`) bins only the tile rows
+[row0, row0 + rows): the unit the tile-sharded compositing distributes
+(rendering.py::composite_projected_sharded). A Gaussian counts its full
+rect width times its rows inside the slab, its rect starts at its first
+row in the slab, and the result's tile ids are slab-local (tile 0 is the
+first tile of row row0). The packed key keeps the depth bits of the whole
+grid's `total_tiles`, so a slab's tiles hold their instances in the order
+the unsharded binning gives them.
 """
 from __future__ import annotations
 
@@ -50,14 +59,32 @@ class Binning(NamedTuple):
 
 def bin_gaussians(proj: Projected, grid_x: int, grid_y: int, capacity: int,
                   exact_depth_sort: bool = False, tight_cull: bool = False,
-                  tile_x: int = 32, tile_y: int = 16) -> Binning:
+                  tile_x: int = 32, tile_y: int = 16, row0: int | None = None,
+                  rows: int | None = None, total_tiles: int | None = None) -> Binning:
     """Bin Gaussians into depth-sorted per-tile instance lists (tile_x x
-    tile_y pixel tiles; the shape matters only to `tight_cull`)."""
+    tile_y pixel tiles; the shape matters only to `tight_cull`). With
+    `row0` and `rows`, only the slab of tile rows [row0, row0 + rows) is
+    binned (module docstring); `total_tiles` defaults to the whole grid."""
     dev = proj.depth.device
     i32 = dict(dtype=torch.int32, device=dev)
-    num_tiles = grid_x * grid_y
+    slab = row0 is not None
+    if slab:
+        if rows is None:
+            raise ValueError("slab binning needs `rows` with `row0`")
+        num_tiles = rows * grid_x
+        key_tiles = grid_x * grid_y if total_tiles is None else total_tiles
+        # rows of each rect inside the slab, times the rect's full width
+        y0c = torch.clamp_min(proj.rect_min[:, 1], row0)
+        rows_in = torch.clamp_min(torch.clamp_max(proj.rect_max[:, 1], row0 + rows) - y0c, 0)
+        width = torch.clamp_min(proj.rect_max[:, 0] - proj.rect_min[:, 0], 1)
+        counts = torch.where((proj.tiles_touched > 0) & (rows_in > 0), rows_in * width,
+                             torch.zeros_like(rows_in)).to(torch.int32)
+        rect_y = torch.clamp(y0c - row0, 0, rows)  # slab-local first row
+    else:
+        num_tiles = key_tiles = grid_x * grid_y
+        counts = proj.tiles_touched.to(torch.int32)
+        rect_y = proj.rect_min[:, 1]
     P = proj.tiles_touched.shape[0]
-    counts = proj.tiles_touched.to(torch.int32)
     cum = torch.cumsum(counts, 0, dtype=torch.int32)
     total = cum[-1] if P > 0 else torch.zeros((), **i32)
 
@@ -79,14 +106,14 @@ def bin_gaussians(proj: Projected, grid_x: int, grid_y: int, capacity: int,
     local = slots - excl[g].to(torch.int32)
 
     rx = proj.rect_min[g, 0]
-    ry = proj.rect_min[g, 1]
+    ry = rect_y[g]
     rw = torch.clamp_min(proj.rect_max[g, 0] - rx, 1)
     dy = torch.div(local, rw, rounding_mode="floor")
     dx = local - dy * rw
     in_range = slots < total
     tile = (ry + dy) * grid_x + (rx + dx)
     if tight_cull:
-        cull = _culled(proj, g, rx + dx, ry + dy, tile_x, tile_y)
+        cull = _culled(proj, g, rx + dx, ry + dy + (row0 if slab else 0), tile_x, tile_y)
         tile = torch.where(cull, torch.full_like(tile, num_tiles), tile)
     tile = torch.where(in_range, tile, torch.full_like(slots, num_tiles))  # sentinel sorts last
 
@@ -102,7 +129,7 @@ def bin_gaussians(proj: Projected, grid_x: int, grid_y: int, capacity: int,
         start = torch.searchsorted(tile_s, tile_ids, side="left")
         stop = torch.searchsorted(tile_s, tile_ids, side="right")
     else:
-        depth_bits = 31 - num_tiles.bit_length()
+        depth_bits = 31 - key_tiles.bit_length()
         key = (tile << depth_bits) | (depth.view(torch.int32) >> (31 - depth_bits))
         key = torch.where(in_range, key, torch.full_like(key, 2**31 - 1))
         key_s, perm = torch.sort(key, stable=True)

@@ -30,6 +30,12 @@ add, then mean - pixel, in that order in the kernels, the plain versions
 and the twin. They are data: CompositeTiles gives them no gradient (the
 JAX package's custom VJP gives them a zero cotangent).
 
+Slabs: every compositing function takes `tile0=0`, the grid index of
+its first tile (JAX's `tids = t0 + arange`; a scalar, since JAX only ever
+passes `arange` or `t0 + arange`). It moves the pixel coordinates and the
+warp boxes to tiles tile0 .. tile0 + T - 1; starts, stops, offsets and the
+outputs stay indexed by the local tile 0 .. T - 1.
+
 Gradients: `CompositeTiles` is the custom VJP of the JAX package's
 `composite_tiles` and `PackSorted` that of its pack gather
 (`_gather_rows_t`): the per-instance gradient rows are reduced to
@@ -51,10 +57,10 @@ N_ACC = 8
 
 
 def _pixels(grid_x: int, num_tiles: int, tile_x: int, tile_y: int, device,
-            offsets=None) -> torch.Tensor:
-    """f32 [T, P, 2]: each tile's pixel coordinates, plus the subpixel
-    offsets when given."""
-    pixf = tile_pixels(grid_x, num_tiles // grid_x, tile_x, tile_y, device)
+            offsets=None, tile0: int = 0) -> torch.Tensor:
+    """f32 [T, P, 2]: the pixel coordinates of tiles tile0 .. tile0 + T - 1
+    of the grid, plus the subpixel offsets when given."""
+    pixf = tile_pixels(grid_x, 0, tile_x, tile_y, device, tile0=tile0, num_tiles=num_tiles)
     return pixf if offsets is None else pixf + offsets
 
 
@@ -120,26 +126,28 @@ def pack_sorted(proj: Projected, colors, flow, binning: Binning):
 
 
 def composite_tiles_fwd(data, gid, starts, stops, *, grid_x: int, tile_x: int = 32,
-                        tile_y: int = 16, track_idx: bool = True, offsets=None):
+                        tile_y: int = 16, track_idx: bool = True, offsets=None,
+                        tile0: int = 0):
     """Composite every tile's instance range [starts[t], stops[t]) of the
     packed buffer, each pixel moved by its subpixel offset when `offsets`
     (f32 [T, P, 2]) is given. Returns accum f32 [T, P, 8], tfinal f32
     [T, P, 1] and bestidx i32 [T, P, 1] (all -1 unless track_idx),
-    P = tile_x * tile_y.
+    P = tile_x * tile_y. Tile t is the grid's tile tile0 + t.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
     if data.device.type == "cpu":
         return composite_tiles_plain(data, gid, starts, stops, grid_x=grid_x,
                                      tile_x=tile_x, tile_y=tile_y, track_idx=track_idx,
-                                     offsets=offsets)
+                                     offsets=offsets, tile0=tile0)
     return kernels.composite_fwd(data, gid, starts, stops, grid_x=grid_x, tile_x=tile_x,
-                                 tile_y=tile_y, track_idx=track_idx, offsets=offsets)
+                                 tile_y=tile_y, track_idx=track_idx, offsets=offsets,
+                                 tile0=tile0)
 
 
 def composite_tiles_plain(data, gid, starts, stops, *, grid_x: int, tile_x: int = 32,
                           tile_y: int = 16, track_idx: bool = True, offsets=None,
-                          chunk: int = 64, tile_batch: int = 1024):
+                          tile0: int = 0, chunk: int = 64, tile_batch: int = 1024):
     """The kernel's plain PyTorch version, same signature and outputs: the
     oracle's chunked blend (ops/rasterize_tiled.py) over the packed rows,
     `tile_batch` tiles at a time to bound the [tiles, pixels, chunk]
@@ -149,7 +157,7 @@ def composite_tiles_plain(data, gid, starts, stops, *, grid_x: int, tile_x: int 
     npix = tile_x * tile_y
     rows = data[:14].t()  # [capacity, 14]
     xy, conic, opac, feats = rows[:, 0:2], rows[:, 2:5], rows[:, 5], rows[:, 6:14]
-    pixf = _pixels(grid_x, T, tile_x, tile_y, dev, offsets)  # [T, P, 2]
+    pixf = _pixels(grid_x, T, tile_x, tile_y, dev, offsets, tile0)  # [T, P, 2]
 
     accum = torch.empty((T, npix, N_ACC), dtype=torch.float32, device=dev)
     tfinal = torch.empty((T, npix, 1), dtype=torch.float32, device=dev)
@@ -166,9 +174,10 @@ def composite_tiles_plain(data, gid, starts, stops, *, grid_x: int, tile_x: int 
 
 
 def warp_boxes(grid_x: int, num_tiles: int, tile_x: int, tile_y: int,
-               device, offsets=None) -> torch.Tensor:
+               device, offsets=None, tile0: int = 0) -> torch.Tensor:
     """f32 [T, P // 32, 4]: the (x0, x1, y0, y1) bounding box of each warp's
-    32 pixels (pixels 32w .. 32w + 31 of the tile, p = y * tile_x + x).
+    32 pixels (pixels 32w .. 32w + 31 of the tile, p = y * tile_x + x), for
+    the grid's tiles tile0 .. tile0 + T - 1.
 
     Without offsets it is formed as csrc/composite_common.cuh::warp_box forms
     it: pixel centres, and a warp that spans rows covers every column of the
@@ -179,7 +188,7 @@ def warp_boxes(grid_x: int, num_tiles: int, tile_x: int, tile_y: int,
     (inf, -inf, inf, -inf), which skips no instance that passes the
     opacity floor."""
     if offsets is not None:
-        pix = _pixels(grid_x, num_tiles, tile_x, tile_y, device, offsets)
+        pix = _pixels(grid_x, num_tiles, tile_x, tile_y, device, offsets, tile0)
         pix = pix.reshape(num_tiles, -1, 32, 2)
         ok = torch.isfinite(pix).all(-1, keepdim=True)
         inf = torch.tensor(float("inf"), device=device)
@@ -191,7 +200,7 @@ def warp_boxes(grid_x: int, num_tiles: int, tile_x: int, tile_y: int,
     wraps = r1 != r0
     c0 = torch.where(wraps, 0, first - r0 * tile_x)
     c1 = torch.where(wraps, tile_x - 1, first + 31 - r1 * tile_x)
-    t = torch.arange(num_tiles, device=device)[:, None]
+    t = tile0 + torch.arange(num_tiles, device=device)[:, None]
     tx0, ty0 = (t % grid_x) * tile_x, (t // grid_x) * tile_y
     return torch.stack([tx0 + c0, tx0 + c1, ty0 + r0, ty0 + r1], dim=-1).float()
 
@@ -279,12 +288,13 @@ def bwd_errors(got, want, lo: int, hi: int) -> dict[str, tuple[float, float, flo
 
 
 def composite_tiles_bwd(data, starts, stops, gacc, acdot, gend, tfinal, *, grid_x: int,
-                        tile_x: int = 32, tile_y: int = 16, offsets=None):
+                        tile_x: int = 32, tile_y: int = 16, offsets=None, tile0: int = 0):
     """Per-instance gradient rows dgrad f32 [16, capacity] of the forward
     composite, from the cotangents gacc f32 [T, P, 8] (of accum, with the
     color cotangent folded in), acdot = accum[..., :3] . gacc[..., :3],
     gend = the cotangent of tfinal (color's included), and the forward's
-    tfinal, all [T, P, 1], and the forward's subpixel offsets, if any. Rows:
+    tfinal, all [T, P, 1], the forward's subpixel offsets, if any, and its
+    first tile tile0. Rows:
     0-1 dxy, 2-4 dconic, 5 dopacity, 6-13 dfeat, 14-15 zero; columns outside
     every tile's range are zero.
 
@@ -293,14 +303,16 @@ def composite_tiles_bwd(data, starts, stops, gacc, acdot, gend, tfinal, *, grid_
     if data.device.type == "cpu":
         return composite_tiles_bwd_plain(data, starts, stops, gacc, acdot, gend, tfinal,
                                          grid_x=grid_x, tile_x=tile_x, tile_y=tile_y,
-                                         offsets=offsets)
+                                         offsets=offsets, tile0=tile0)
     return kernels.composite_bwd(data, starts, stops, gacc, acdot, gend, tfinal,
-                                 grid_x=grid_x, tile_x=tile_x, tile_y=tile_y, offsets=offsets)
+                                 grid_x=grid_x, tile_x=tile_x, tile_y=tile_y, offsets=offsets,
+                                 tile0=tile0)
 
 
 def composite_tiles_bwd_plain(data, starts, stops, gacc, acdot, gend, tfinal, *,
                               grid_x: int, tile_x: int = 32, tile_y: int = 16,
-                              offsets=None, chunk: int = 64, tile_batch: int = 256):
+                              offsets=None, tile0: int = 0, chunk: int = 64,
+                              tile_batch: int = 256):
     """The backward kernel's plain PyTorch version, same signature and
     outputs: the closed form of the blend's gradient, walked `tile_batch`
     tiles and `chunk` instances at a time like composite_tiles_plain. Per
@@ -317,7 +329,7 @@ def composite_tiles_bwd_plain(data, starts, stops, gacc, acdot, gend, tfinal, *,
     T = starts.shape[0]
     capacity = data.shape[1]
     rows = data[:14].t()  # [capacity, 14]
-    pixf = _pixels(grid_x, T, tile_x, tile_y, dev, offsets)  # [T, P, 2]
+    pixf = _pixels(grid_x, T, tile_x, tile_y, dev, offsets, tile0)  # [T, P, 2]
     lanes = torch.arange(chunk, dtype=torch.int32, device=dev)[None, :]
     dgrad = torch.zeros((DATA_ROWS, capacity), dtype=torch.float32, device=dev)
     for b in range(0, T, tile_batch):
@@ -378,7 +390,7 @@ def composite_tiles_bwd_plain(data, starts, stops, gacc, acdot, gend, tfinal, *,
 
 def composite_tiles_bwd_walk(data, starts, stops, gacc, acdot, gend, tfinal, *,
                              grid_x: int, tile_x: int = 32, tile_y: int = 16,
-                             offsets=None, tile_batch: int = 256):
+                             offsets=None, tile0: int = 0, tile_batch: int = 256):
     """The backward kernel's twin, same signature and outputs: the plain
     version's arithmetic walked one instance at a time (each pixel's
     transmittance and running sum of w c . gc updated per instance, as the
@@ -393,7 +405,7 @@ def composite_tiles_bwd_walk(data, starts, stops, gacc, acdot, gend, tfinal, *,
     capacity = data.shape[1]
     npix = tile_x * tile_y
     rows = data[:14].t()  # [capacity, 14]
-    pixf = _pixels(grid_x, T, tile_x, tile_y, dev, offsets)  # [T, P, 2]
+    pixf = _pixels(grid_x, T, tile_x, tile_y, dev, offsets, tile0)  # [T, P, 2]
     dgrad = torch.zeros((DATA_ROWS, capacity), dtype=torch.float32, device=dev)
     zero = torch.zeros((), device=dev)
     for b in range(0, T, tile_batch):
@@ -455,24 +467,25 @@ class CompositeTiles(torch.autograd.Function):
     tfinal cotangents and composite_tiles_bwd gives the per-instance rows,
     zero outside [starts[0], stops[-1]) (the tail slots alias real Gaussians
     through the clipped order, so they must carry nothing). The subpixel
-    offsets (None, or f32 [T, P, 2]) get no gradient."""
+    offsets (None, or f32 [T, P, 2]) get no gradient; tile0 is the grid
+    index of tile 0 (a slab's first tile, else 0)."""
 
     @staticmethod
     def forward(ctx, data, bg, gid, starts, stops, offsets, grid_x, tile_x, tile_y,
-                track_idx):
+                track_idx, tile0=0):
         accum, tfinal, bestidx = composite_tiles_fwd(
             data, gid, starts, stops, grid_x=grid_x, tile_x=tile_x, tile_y=tile_y,
-            track_idx=track_idx, offsets=offsets)
+            track_idx=track_idx, offsets=offsets, tile0=tile0)
         color = accum[..., 0:3] + tfinal * bg
         ctx.save_for_backward(data, bg, accum, tfinal, starts, stops, offsets)
-        ctx.grid = (grid_x, tile_x, tile_y)
+        ctx.grid = (grid_x, tile_x, tile_y, tile0)
         ctx.mark_non_differentiable(bestidx)
         return color, accum, tfinal, bestidx
 
     @staticmethod
     def backward(ctx, g_color, g_accum, g_tfinal, _g_bestidx):
         data, bg, accum, tfinal, starts, stops, offsets = ctx.saved_tensors
-        grid_x, tile_x, tile_y = ctx.grid
+        grid_x, tile_x, tile_y, tile0 = ctx.grid
         gacc = g_accum.clone()
         gacc[..., 0:3] += g_color
         gend = (g_color * bg).sum(-1, keepdim=True) + g_tfinal
@@ -480,9 +493,32 @@ class CompositeTiles(torch.autograd.Function):
         dgrad = composite_tiles_bwd(data, starts, stops, gacc.contiguous(),
                                     acdot.contiguous(), gend.contiguous(), tfinal,
                                     grid_x=grid_x, tile_x=tile_x, tile_y=tile_y,
-                                    offsets=offsets)
+                                    offsets=offsets, tile0=tile0)
         g_bg = (g_color * tfinal).sum((0, 1)) if ctx.needs_input_grad[1] else None
-        return dgrad, g_bg, None, None, None, None, None, None, None, None
+        return dgrad, g_bg, None, None, None, None, None, None, None, None, None
+
+
+def composite_blocks(proj: Projected, colors, flow, binning: Binning, *, grid_x: int, bg,
+                     max_depth: float, tile_x: int = 32, tile_y: int = 16,
+                     track_idx: bool = True, offsets=None, tile0: int = 0) -> comp.RenderOutputs:
+    """Pack and composite the binning's tiles, the grid's tiles tile0 ..
+    tile0 + T - 1 (T = the binning's tile count), into per-tile pixel
+    blocks [T, P, ...]: color, the acc-normalised depth and flow, acc,
+    final_t and idx (all -1 unless track_idx). Differentiable through
+    CompositeTiles and PackSorted; offsets (f32 [T, P, 2]) get no
+    gradient."""
+    data, gid = pack_sorted(proj, colors, flow, binning)
+    color, accum, tfinal, bestidx = CompositeTiles.apply(
+        data, bg, gid, binning.tile_start, binning.tile_stop, offsets, grid_x, tile_x,
+        tile_y, track_idx, tile0)
+    acc = accum[..., 7].detach()
+    has = acc > 0.0
+    denom = torch.where(has, acc, torch.ones_like(acc))
+    depth = torch.where(has, accum[..., 3] / denom, torch.full_like(acc, max_depth))
+    flow_b = torch.where(has[..., None], accum[..., 4:7] / denom[..., None],
+                         torch.zeros_like(accum[..., 4:7]))
+    return comp.RenderOutputs(color=color, depth=depth, flow=flow_b, acc=acc,
+                              final_t=tfinal[..., 0], idx=bestidx[..., 0])
 
 
 def rasterize_tiled_cuda(proj: Projected, colors, flow, binning: Binning, *, width: int,
@@ -501,20 +537,8 @@ def rasterize_tiled_cuda(proj: Projected, colors, flow, binning: Binning, *, wid
     offsets = None
     if subpixel_offset is not None:
         offsets = tile_offsets(subpixel_offset.detach(), grid_x, grid_y, tile_x, tile_y)
-    data, gid = pack_sorted(proj, colors, flow, binning)
-    color, accum, tfinal, bestidx = CompositeTiles.apply(
-        data, bg, gid, binning.tile_start, binning.tile_stop, offsets, grid_x, tile_x,
-        tile_y, track_idx)
-    acc = accum[..., 7].detach()
-    has = acc > 0.0
-    denom = torch.where(has, acc, torch.ones_like(acc))
-    depth = torch.where(has, accum[..., 3] / denom, torch.full_like(acc, max_depth))
-    flow_img = torch.where(has[..., None], accum[..., 4:7] / denom[..., None],
-                           torch.zeros_like(accum[..., 4:7]))
-
-    def timg(arr):
-        return comp.tiles_to_image(arr, grid_y, grid_x, tile_y, tile_x, height, width)
-
-    return comp.RenderOutputs(color=timg(color), depth=timg(depth), flow=timg(flow_img),
-                              acc=timg(acc), final_t=timg(tfinal[..., 0]),
-                              idx=timg(bestidx[..., 0]))
+    blocks = composite_blocks(proj, colors, flow, binning, grid_x=grid_x, bg=bg,
+                              max_depth=max_depth, tile_x=tile_x, tile_y=tile_y,
+                              track_idx=track_idx, offsets=offsets)
+    return comp.RenderOutputs(*(comp.tiles_to_image(a, grid_y, grid_x, tile_y, tile_x, height,
+                                                    width) for a in blocks))

@@ -25,10 +25,16 @@ def gather_sorted(proj: Projected, colors, flow, binning: Binning):
     return proj.xy[g], proj.conic[g], opac[g], feats, binning.order
 
 
-def tile_pixels(grid_x: int, grid_y: int, tile_x: int, tile_y: int, device) -> torch.Tensor:
-    """Pixel coordinates per tile: [num_tiles, tile_y*tile_x, 2] (x, y)."""
-    ty, tx = torch.meshgrid(torch.arange(grid_y, device=device),
-                            torch.arange(grid_x, device=device), indexing="ij")
+def tile_pixels(grid_x: int, grid_y: int, tile_x: int, tile_y: int, device, *,
+                tile0: int = 0, num_tiles: int | None = None) -> torch.Tensor:
+    """Pixel coordinates per tile: [num_tiles, tile_y*tile_x, 2] (x, y) of
+    the tiles whose global (row-major) indices are tile0 .. tile0 +
+    num_tiles - 1 of a grid grid_x tiles wide; by default the whole
+    grid_x x grid_y grid. tile0 is where a slab of the grid starts (the
+    JAX kernels' `tids = t0 + arange`); it need not start a row."""
+    n = grid_x * grid_y if num_tiles is None else num_tiles
+    ids = tile0 + torch.arange(n, device=device)
+    ty, tx = ids // grid_x, ids % grid_x
     py, px = torch.meshgrid(torch.arange(tile_y, device=device),
                             torch.arange(tile_x, device=device), indexing="ij")
     x = tx.reshape(-1, 1) * tile_x + px.reshape(1, -1)
@@ -71,6 +77,22 @@ def blend_tiles(pixf, xy, conic, opac, feats, gid, starts, stops, *,
                                  opac[idx_c][:, None], f[:, None], ok[:, None],
                                  gid[idx_c][:, None])
     return carry
+
+
+def composite_slab(proj: Projected, colors, flow, binning: Binning, *, grid_x: int, tile0: int,
+                   num_local: int, bg, max_depth: float, chunk: int = 128, tile_x: int = 32,
+                   tile_y: int = 16) -> comp.RenderOutputs:
+    """Composite a slab of `num_local` tiles whose first tile is the grid's
+    tile `tile0` (JAX's `composite_slab`), returning per-tile pixel blocks
+    [num_local, tile_y*tile_x, ...]. The binning's tile ranges are the
+    slab's own (bin_gaussians with row0/rows): its buffer holds only this
+    slab's instances. This is the unit the tile-sharded compositing
+    distributes (rendering.py::composite_projected_sharded)."""
+    xy, conic, opac, feats, gid = gather_sorted(proj, colors, flow, binning)
+    pixf = tile_pixels(grid_x, 0, tile_x, tile_y, xy.device, tile0=tile0, num_tiles=num_local)
+    carry = blend_tiles(pixf, xy, conic, opac, feats, gid, binning.tile_start,
+                        binning.tile_stop, chunk=chunk)
+    return comp.finalize(carry, bg, max_depth)
 
 
 def rasterize_tiled(proj: Projected, colors, flow, binning: Binning, *, width: int,

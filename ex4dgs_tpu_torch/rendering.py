@@ -23,7 +23,9 @@ from .models.temporal import PointData, point_data_at_t
 from .ops import binning as binning_ops
 from .ops.math3d import cov3d_from_scaling_rotation, sh_to_rgb
 from .ops.projection import CameraArrays, Projected, project_gaussians, tile_grid
-from .ops.rasterize_cuda import rasterize_tiled_cuda
+from .ops import compositing as comp
+from .ops.rasterize_cuda import composite_blocks, rasterize_tiled_cuda
+from .parallel import collectives
 
 
 @dataclasses.dataclass
@@ -177,6 +179,97 @@ def composite_projected(proj: Projected, colors, flow_dirs, cam: RenderCamera, *
         projected=proj,
         binning_total=binning.total,
     )
+
+
+def composite_slab_rank(proj: Projected, colors, flow_dirs, cam: RenderCamera, *, bg,
+                        far: float, capacity: int, rank: int, axis_size: int,
+                        track_idx: bool = False, kernel_cfg: KernelConfig | None = None):
+    """One rank's part of the tile-sharded compositing: (blocks, total).
+    Rank `rank` of `axis_size` owns the slab of rows_per = ceil(grid_y /
+    axis_size) tile rows from row rank * rows_per; it bins only that slab
+    into a capacity // axis_size buffer and composites it with the kernels
+    at tile0 = its first tile's grid index. blocks: per-tile pixel blocks
+    [rows_per * grid_x, P, ...] (color, depth, flow, acc, final_t, idx);
+    total: the slab's true instance count. Needs no process group, so one
+    process can run the slabs in turn (composite_projected_slabs)."""
+    kcfg = kernel_cfg or KernelConfig()
+    if capacity % axis_size:
+        raise ValueError(f"sharded capacity {capacity} must divide over axis_size {axis_size}")
+    grid_x, grid_y = tile_grid(cam.width, cam.height, kcfg.tile_x, kcfg.tile_y)
+    rows_per = -(-grid_y // axis_size)
+    row0 = rank * rows_per
+    binning = binning_ops.bin_gaussians(proj, grid_x, grid_y, capacity // axis_size,
+                                        exact_depth_sort=kcfg.exact_sort,
+                                        tight_cull=kcfg.tight_cull, tile_x=kcfg.tile_x,
+                                        tile_y=kcfg.tile_y, row0=row0, rows=rows_per,
+                                        total_tiles=grid_x * grid_y)
+    blocks = composite_blocks(proj, colors, flow_dirs, binning, grid_x=grid_x, bg=bg,
+                              max_depth=far, tile_x=kcfg.tile_x, tile_y=kcfg.tile_y,
+                              track_idx=track_idx, tile0=row0 * grid_x)
+    return blocks, binning.total
+
+
+def _slab_result(proj: Projected, blocks: comp.RenderOutputs, total_eff, cam: RenderCamera,
+                 static_num: int, kcfg: KernelConfig) -> RenderResult:
+    """The frame of the slabs' gathered blocks (the padding tiles of the
+    last slab dropped)."""
+    grid_x, grid_y = tile_grid(cam.width, cam.height, kcfg.tile_x, kcfg.tile_y)
+
+    def timg(arr):
+        return comp.tiles_to_image(arr[:grid_x * grid_y], grid_y, grid_x, kcfg.tile_y,
+                                   kcfg.tile_x, cam.height, cam.width)
+
+    return RenderResult(render=timg(blocks.color), depth=timg(blocks.depth),
+                        opticalflow=timg(blocks.flow), acc=timg(blocks.acc),
+                        dominent_idxs=timg(blocks.idx), radii=proj.radius,
+                        visibility_filter=proj.radius > 0, static_num=static_num,
+                        projected=proj, binning_total=total_eff)
+
+
+def composite_projected_sharded(proj: Projected, colors, flow_dirs, cam: RenderCamera, *, bg,
+                                far: float, capacity: int, group=None, static_num: int = 0,
+                                track_idx: bool = False,
+                                kernel_cfg: KernelConfig | None = None) -> RenderResult:
+    """Tile-sharded compositing over the ranks of process group `group`
+    (the mesh's gauss_group; JAX's axis_name): every rank bins and
+    composites its slab of tile rows (composite_slab_rank), the tile blocks
+    are all-gathered into the frame, the same on every rank.
+    binning_total is the worst slab's effective total, group size times the
+    largest slab total (a MAX over the group), so the caller's `total <=
+    capacity` gate means "every slab fits its buffer" and a capacity grown
+    from it fits the fullest slab.
+
+    Gradient: every rank turns the gathered frame into the same loss, so
+    each keeps its own blocks' cotangent as it is (collectives.GatherRows,
+    replicated). The JAX package's shard_map transposes that gather into a
+    sum over the ranks, which scales its render-loss gradients by the group
+    size."""
+    kcfg = kernel_cfg or KernelConfig()
+    size, rank = collectives.group_size(group), collectives.group_rank(group)
+    blocks, total = composite_slab_rank(proj, colors, flow_dirs, cam, bg=bg, far=far,
+                                        capacity=capacity, rank=rank, axis_size=size,
+                                        track_idx=track_idx, kernel_cfg=kcfg)
+    gathered = comp.RenderOutputs(*(collectives.gather_rows(a, group, replicated=True)
+                                    for a in blocks))
+    total_eff = size * collectives.group_max(total, group)
+    return _slab_result(proj, gathered, total_eff, cam, static_num, kcfg)
+
+
+def composite_projected_slabs(proj: Projected, colors, flow_dirs, cam: RenderCamera, *, bg,
+                              far: float, capacity: int, axis_size: int, static_num: int = 0,
+                              track_idx: bool = False,
+                              kernel_cfg: KernelConfig | None = None) -> RenderResult:
+    """composite_projected_sharded's frame with the `axis_size` slabs run in
+    turn in this process: the same blocks and binning_total as a group of
+    that size gives every rank."""
+    kcfg = kernel_cfg or KernelConfig()
+    parts = [composite_slab_rank(proj, colors, flow_dirs, cam, bg=bg, far=far,
+                                 capacity=capacity, rank=r, axis_size=axis_size,
+                                 track_idx=track_idx, kernel_cfg=kcfg)
+             for r in range(axis_size)]
+    blocks = comp.RenderOutputs(*(torch.cat(a, 0) for a in zip(*(b for b, _ in parts))))
+    total_eff = axis_size * torch.stack([t for _, t in parts]).amax(0)
+    return _slab_result(proj, blocks, total_eff, cam, static_num, kcfg)
 
 
 def render(cam: RenderCamera, model: GaussianModel, cfg: ModelConfig, *, t, bg,

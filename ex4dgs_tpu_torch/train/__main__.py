@@ -21,7 +21,21 @@ kernels' launch counts and the host clock per iteration.
 --debug writes `debug/nan_snapshot_N.npz` under the model path when a step
 produces NaNs.
 
-Not here yet: the JAX CLI's mesh, multi-host and backend flags.
+Several ranks (one process each): --mesh_data D --mesh_gauss G trains D
+cameras per iteration with the splats and tiles sharded over G
+(parallel/step_dp.py) on D x G ranks, started by torchrun
+(`torchrun --nproc_per_node N -m ex4dgs_tpu_torch.train ...`) or by the
+JAX CLI's flags, one process each:
+
+    python -m ex4dgs_tpu_torch.train ... --mesh_data 2 --coordinator \
+        localhost:29500 --num_processes 2 --process_id {0,1} \
+        [--dist_backend gloo]
+
+NCCL (the default on CUDA) needs a card per rank; --dist_backend gloo runs
+several ranks on one card. Rank 0 alone writes the model path's files;
+the report then carries every rank's checkpoint digests
+("rank_digests"). The JAX CLI's --backend (its Pallas/jnp switch) has no
+counterpart: the port always composites with its kernels.
 """
 from __future__ import annotations
 
@@ -64,6 +78,17 @@ def parse_args(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default=None,
                         help="torch device to train on (default cuda)")
+    parser.add_argument("--mesh_data", type=int, default=1,
+                        help="data-parallel mesh axis (cameras per step)")
+    parser.add_argument("--mesh_gauss", type=int, default=1,
+                        help="model-parallel mesh axis (splat + tile sharding)")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="multi-process: rank 0's address host:port")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
+    parser.add_argument("--dist_backend", type=str, default=None,
+                        help="nccl (default on cuda) | gloo (default on cpu; several ranks "
+                             "on one card)")
     _add_dataclass_args(parser, ModelConfig)
     _add_dataclass_args(parser, OptimizationConfig)
     return parser, parser.parse_args(argv)
@@ -74,7 +99,27 @@ def main(argv=None) -> int:
     from .. import kernels, resolve_device
     from ..models.config import ModelConfig, OptimizationConfig, load_configs, overlay_json
 
-    dev = resolve_device(args.device)  # raises before anything is read without CUDA
+    import torch
+    import torch.distributed as dist
+
+    from ..runtime.distributed import initialize
+
+    # raises before anything is read without CUDA; joins the job first
+    joined = not dist.is_initialized()
+    dist_info = initialize(args.coordinator, args.num_processes, args.process_id,
+                           device=args.device, backend=args.dist_backend)
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dist_info["process_count"] > 1:
+        print(f"distributed: {dist_info}", flush=True)
+    mesh = None
+    if args.mesh_data * args.mesh_gauss > 1:
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(args.mesh_data * args.mesh_gauss, data=args.mesh_data,
+                         gauss=args.mesh_gauss, device=dev)
+    rank0 = mesh is None or mesh.rank == 0
     cfg, opt = load_configs(args.config) if args.config else (ModelConfig(), OptimizationConfig())
     overrides = {k: v for k, v in vars(args).items() if v is not None}
     cfg = overlay_json(cfg, {k: v for k, v in overrides.items()
@@ -85,8 +130,9 @@ def main(argv=None) -> int:
         parser.error("--source_path is required")
     model_path = cfg.model_path or os.path.join("output", os.path.basename(cfg.source_path))
     os.makedirs(model_path, exist_ok=True)
-    with open(os.path.join(model_path, "cfg_args.json"), "w") as f:
-        json.dump({**dataclasses.asdict(cfg), **dataclasses.asdict(opt)}, f, indent=1)
+    if rank0:
+        with open(os.path.join(model_path, "cfg_args.json"), "w") as f:
+            json.dump({**dataclasses.asdict(cfg), **dataclasses.asdict(opt)}, f, indent=1)
 
     from ..data.scene import Scene
     from ..io.checkpoint import digest, load_checkpoint
@@ -95,7 +141,7 @@ def main(argv=None) -> int:
     from .trainer import Trainer
 
     t0 = time.perf_counter()
-    scene = Scene(cfg, model_path=model_path, save_input=True)
+    scene = Scene(cfg, model_path=model_path, save_input=rank0)
     scene_s = time.perf_counter() - t0
     model = opt_state = None
     # the JAX CLI's kernel knob from the environment (its EX4DGS_TIGHT_CULL);
@@ -108,7 +154,7 @@ def main(argv=None) -> int:
             kernel = KernelConfig.from_dict(json.loads(str(extra["kernel_config"])))
 
     gui = None
-    if args.port:
+    if args.port and rank0:
         from ..viewer import NetworkViewer
 
         gui = NetworkViewer(args.ip, args.port, device=dev)
@@ -125,7 +171,7 @@ def main(argv=None) -> int:
                       test_iterations=tuple(args.test_iterations), kernel=kernel,
                       debug_snapshot_dir=(os.path.join(model_path, "debug")
                                           if args.debug else None),
-                      gui=gui, device=dev)
+                      gui=gui, device=dev, mesh=mesh)
     init_s = time.perf_counter() - t0
     if args.start_checkpoint:
         trainer.iteration = start_it
@@ -137,13 +183,13 @@ def main(argv=None) -> int:
                      | {opt.iterations})
 
     def progress(it, loss, psnr_val):
-        if args.quiet:
+        if args.quiet or not rank0:
             return
         print(f"[{it}/{opt.iterations}] loss={loss:.5f} psnr={psnr_val:.2f} "
               f"static={int(trainer.model.n_static())} "
               f"dynamic={int(trainer.model.n_dynamic())}", flush=True)
 
-    runs, saved, save_ms = [], {}, []
+    runs, saved, save_ms, rank_digests = [], {}, [], {}
     try:
         for target in save_at:
             if trainer.iteration >= target:
@@ -153,6 +199,9 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             saved[target] = digest(trainer.save(model_path, target))
             save_ms.append((time.perf_counter() - t0) * 1e3)
+            if mesh is not None:
+                rank_digests[target] = [None] * dist.get_world_size()
+                dist.all_gather_object(rank_digests[target], saved[target])
         gt_cache = trainer.prefetcher.stats()
     finally:
         trainer.close()
@@ -190,9 +239,15 @@ def main(argv=None) -> int:
         "gt_cache": gt_cache,
         "kernel_launches": dict(kernels.launches),
         "saved": saved,
+        "distributed": dist_info,
+        "mesh": None if mesh is None else mesh.shape,
+        "rank_digests": rank_digests,
     }
-    with open(os.path.join(model_path, "train_report.json"), "w") as f:
-        json.dump(report, f, indent=1)
+    if rank0:
+        with open(os.path.join(model_path, "train_report.json"), "w") as f:
+            json.dump(report, f, indent=1)
+    if joined and dist.is_initialized():
+        dist.destroy_process_group()
     print("done", flush=True)
     return 0
 

@@ -106,8 +106,14 @@ def _loss_and_aux(params, mean2d_offset, flow_dirs, model: GaussianModel, cam: R
     res = render(cam, model.replace(params=params), statics.cfg, t=t, bg=bg,
                  capacity=statics.capacity, mean2d_offset=mean2d_offset, flow_dirs=flow_dirs,
                  track_idx=False, kernel_cfg=statics.kernel, device=device)
+    loss, ll1 = _image_loss(res, gt, statics.opt)
+    loss = loss + _regularizers(params, model, statics.opt, statics.cfg, iteration)
+    return loss, (res, ll1)
+
+
+def _image_loss(res: RenderResult, gt, opt: OptimizationConfig):
+    """(L1/SSIM loss plus the flow hook, L1) of a rendered frame."""
     img = res.render
-    opt = statics.opt
     ll1 = l1_loss(img, gt)
     # One SSIM map serves the loss and the hook (the hook's copy is detached).
     ssim_map = ssim(img, gt, reduce=False)
@@ -116,8 +122,7 @@ def _loss_and_aux(params, mean2d_offset, flow_dirs, model: GaussianModel, cam: R
         l1_map = torch.abs(img - gt).mean(dim=-1)
         hook = torch.stack([res.acc, l1_map, ssim_map.mean(dim=-1)], dim=-1).detach()
         loss = loss + (res.opticalflow * hook).sum()
-    loss = loss + _regularizers(params, model, opt, statics.cfg, iteration)
-    return loss, (res, ll1)
+    return loss, ll1
 
 
 def _update_stat_accumulators(model: GaussianModel, res: RenderResult, m2d_grad, flow_grad,
@@ -168,6 +173,25 @@ def _update_stat_accumulators(model: GaussianModel, res: RenderResult, m2d_grad,
     return model.replace(stats=stats)
 
 
+def _gradients(loss, params: dict, mean2d_offset, flow_dirs):
+    """(param gradients by name, mean2d_offset's, flow_dirs') of the loss;
+    zeros for a leaf the loss does not reach."""
+    leaves = [*params.values(), mean2d_offset, flow_dirs]
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+    return dict(zip(params, grads[:-2])), grads[-2], grads[-1]
+
+
+def _apply_update(model: GaussianModel, opt_state: RAdamState, pgrads: dict, iteration: int,
+                  statics: StepStatics):
+    """(model, optimizer state) after the RAdam step of the gradients
+    pgrads, masked to the active rows and scrubbed of NaN."""
+    pgrads = scrub_nan(mask_grads(pgrads, model))
+    lrs = group_lrs(statics.opt, statics.spatial_lr_scale, iteration)
+    new_params, new_state = radam_update(model.params, pgrads, opt_state, lrs)
+    return model.replace(params=new_params), new_state
+
+
 def _nan_flag(model: GaussianModel) -> torch.Tensor:
     flag = torch.isnan(model.params["xyz"]).any()
     if model.dynamic_capacity:
@@ -199,18 +223,11 @@ def train_step(model: GaussianModel, opt_state: RAdamState, cam: RenderCamera, g
                            visibility=res.visibility_filter,
                            binning_total=res.binning_total, nan_flag=_nan_flag(model))
 
-    leaves = [*params.values(), mean2d_offset, flow_dirs]
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
-    pgrads = dict(zip(params, grads[:-2]))
-    m2d_grad, flow_grad = grads[-2], grads[-1]
-
+    pgrads, m2d_grad, flow_grad = _gradients(loss, params, mean2d_offset, flow_dirs)
     with torch.no_grad():
-        pgrads = scrub_nan(mask_grads(pgrads, model))
-        lrs = group_lrs(statics.opt, statics.spatial_lr_scale, iteration)
-        new_params, new_state = radam_update(model.params, pgrads, opt_state, lrs)
-        new_model = _update_stat_accumulators(model.replace(params=new_params), res, m2d_grad,
-                                              flow_grad, t, iteration, statics.opt)
+        new_model, new_state = _apply_update(model, opt_state, pgrads, iteration, statics)
+        new_model = _update_stat_accumulators(new_model, res, m2d_grad, flow_grad, t, iteration,
+                                              statics.opt)
     return StepOutputs(model=new_model, opt_state=new_state, loss=loss.detach(),
                        ll1=ll1.detach(), psnr=psnr(img, gt), visibility=res.visibility_filter,
                        binning_total=res.binning_total, nan_flag=_nan_flag(new_model))

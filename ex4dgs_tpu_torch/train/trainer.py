@@ -25,6 +25,14 @@ The RNG order is the JAX trainer's: `rng` (numpy) draws the random
 background once per iteration and the density events' randomness,
 `pyrng` (random.Random) shuffles each epoch, so one seed gives both
 trainers the same cameras, backgrounds and event randomness.
+
+With a mesh (parallel/mesh.py) every iteration trains `data` cameras
+through the sharded step (parallel/step_dp.py), as the JAX trainer's mesh
+path: every rank walks the same camera sequence from the same seed and
+builds the same batch (padded with repeats at an epoch's end); rank d
+loads and trains on batch entry d only. The host events run on every rank
+on its replica with the same RNG, so the ranks stay bit-equal; the JSONL
+file is written by rank 0 only (the CLI saves on rank 0 only).
 """
 from __future__ import annotations
 
@@ -50,6 +58,17 @@ from ..models.state import (GaussianModel, create_from_pcd, oneup_sh_degree, req
 from ..ops.losses import psnr as psnr_fn
 from ..rendering import default_capacity, render
 from .step import StepStatics, train_step
+
+
+def _camera_epoch(cameras: list, rng):
+    """(camera, None) in the shuffled order of ImagePrefetcher.epoch (the
+    same draw of `rng`), loading no frame: a sharded rank loads only its
+    own camera of each batch."""
+    cams = list(cameras)
+    rng.shuffle(cams)
+    for cam in cams:
+        yield cam, None
+
 
 OVERFLOW_RETRIES = 4
 
@@ -103,15 +122,25 @@ class Trainer:
     "n_dynamic"} (after the iteration's step and overflow retries, before
     its events), and {"iteration", "test": report} after each test report.
     The loop is serial, so a line lags no step. `log_every` also spaces the
-    `progress` callbacks."""
+    `progress` callbacks.
+
+    mesh: a parallel.mesh.Mesh of this rank (module docstring); its
+    device must be of the trainer's device type. Every rank of the mesh
+    builds a Trainer with the same arguments and trains in lockstep."""
 
     def __init__(self, cfg: ModelConfig, opt: OptimizationConfig, scene: Scene,
                  model: GaussianModel | None = None, opt_state: RAdamState | None = None,
                  seed: int = 0, capacity: int | None = None, log_every: int = 50,
                  test_iterations: tuple = (), metrics_path: str | None = None,
                  kernel: KernelConfig | None = None,
-                 debug_snapshot_dir: str | None = None, gui=None, device=None):
+                 debug_snapshot_dir: str | None = None, gui=None, device=None, mesh=None):
         self.device = resolve_device(device)
+        if mesh is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the trainer runs on {self.device}, the mesh on {mesh.device}")
+            self.device = mesh.device
+        self.mesh = mesh
+        self._sharded = None  # (statics, step) of the last sharded step built
         self.cfg = cfg
         self.opt = opt
         self.scene = scene
@@ -136,7 +165,8 @@ class Trainer:
         n_pts = model.static_capacity + model.dynamic_capacity
         self.capacity = capacity or default_capacity(n_pts, w, h, self.kernel)
         self.test_iterations = set(test_iterations)
-        self._metrics_file = open(metrics_path, "a") if metrics_path else None
+        self.rank0 = mesh is None or mesh.rank == 0
+        self._metrics_file = open(metrics_path, "a") if metrics_path and self.rank0 else None
         self.debug_snapshot_dir = debug_snapshot_dir
         # Optional live network viewer (viewer.NetworkViewer), polled before
         # every step like the reference's network_gui hook (train.py:93-106).
@@ -229,8 +259,16 @@ class Trainer:
 
     def _step(self, cam, gt, timestamp: float, bg, it: int):
         self.steps += 1
-        return train_step(self.model, self.opt_state, cam, gt, timestamp, bg, it,
-                          self._statics(), device=self.device)
+        statics = self._statics()
+        if self.mesh is None:
+            return train_step(self.model, self.opt_state, cam, gt, timestamp, bg, it, statics,
+                              device=self.device)
+        if self._sharded is None or self._sharded[0] != statics:
+            from ..parallel.step_dp import make_sharded_train_step
+
+            self._sharded = (statics, make_sharded_train_step(statics, self.mesh,
+                                                              device=self.device))
+        return self._sharded[1](self.model, self.opt_state, cam, gt, timestamp, bg, it)
 
     # ------------------------------------------------------------------
     def train(self, iterations: int | None = None, progress=None) -> dict:
@@ -272,7 +310,8 @@ class Trainer:
                     cams = self.scene.sampled_train_cameras()
                     if not cams:
                         raise RuntimeError("no train cameras in sampling window")
-                    cam_iter = self.prefetcher.epoch(cams, shuffle=True, rng=self.pyrng)
+                    cam_iter = (self.prefetcher.epoch(cams, shuffle=True, rng=self.pyrng)
+                                if self.mesh is None else _camera_epoch(cams, self.pyrng))
                     if it > opt.prune_invisible_interval:
                         self.prune_inv = True
                 try:
@@ -290,8 +329,20 @@ class Trainer:
                 bg = torch.from_numpy(bg_np).to(dev)
             else:
                 bg_np, bg = bg_const_np, bg_const
-            cam_dev = cam.render_camera(dev)
-            out = self._step(cam_dev, gt, cam.timestamp, bg, it)
+            batch = [cam]
+            if self.mesh is not None:
+                while len(batch) < self.mesh.data and cam_iter is not None:
+                    try:
+                        batch.append(next(cam_iter)[0])
+                    except StopIteration:
+                        cam_iter = None
+                batch += batch[-1:] * (self.mesh.data - len(batch))  # epoch end: repeats
+                mine = batch[self.mesh.data_index]
+                cam_step, gt = mine, self.prefetcher.load(mine)
+            else:
+                cam_step = cam
+            cam_dev = cam_step.render_camera(dev)
+            out = self._step(cam_dev, gt, cam_step.timestamp, bg, it)
             total = int(out.binning_total)
             if total > self.capacity:
                 # The step left the state unchanged; grow the capacity and
@@ -301,7 +352,7 @@ class Trainer:
                     self.overflow_count += 1
                     self.capacity = round_capacity(max(total * 5 // 4, self.capacity * 2),
                                                    65536)
-                    out = self._step(cam_dev, gt, cam.timestamp, bg, it)
+                    out = self._step(cam_dev, gt, cam_step.timestamp, bg, it)
                     total = int(out.binning_total)
                     if total <= self.capacity:
                         break
@@ -312,11 +363,13 @@ class Trainer:
                         "was skipped and its logged metrics come from a truncated instance "
                         "list")
             self.model, self.opt_state = out.model, out.opt_state
-            self.last_vis = out.visibility
+            # with a mesh the batch's visibility is folded into the stats
+            self.last_vis = out.visibility if self.mesh is None else None
             self.last_cam = cam
 
             loss = float(out.loss)
-            self.error_tracker.mark(loss, cam.timestamp)
+            for c in batch:
+                self.error_tracker.mark(loss, c.timestamp)
             metrics["loss"].append(loss)
             metrics["psnr"].append(float(out.psnr))
             metrics["timestamps"].append(cam.timestamp)
@@ -455,7 +508,7 @@ class Trainer:
         step produced NaNs, the full pre-prune parameters and the camera
         that triggered it go to `nan_snapshot_<iteration>.npz` in
         `debug_snapshot_dir`, with the JAX trainer's keys."""
-        if not self.debug_snapshot_dir:
+        if not self.debug_snapshot_dir or not self.rank0:
             return
         os.makedirs(self.debug_snapshot_dir, exist_ok=True)
         payload = {f"param:{k}": v.detach().cpu().numpy() for k, v in self.model.params.items()}
@@ -484,9 +537,12 @@ class Trainer:
     def save(self, model_path: str, iteration: int | None = None) -> D.HostModel:
         """The reference-layout `point_cloud/iteration_N/point_cloud.ply`
         (+ `dynamic_point_cloud.ply`) and `chkpntN.npz`; returns the
-        HostModel that was written."""
+        HostModel that was written. With a mesh only rank 0 writes; every
+        rank returns its HostModel."""
         it = iteration or self.iteration
         hm = D.pull(self.model, self.opt_state)
+        if not self.rank0:
+            return hm
         pc_dir = os.path.join(model_path, "point_cloud", f"iteration_{it}")
         os.makedirs(pc_dir, exist_ok=True)
         save_model_ply(hm, os.path.join(pc_dir, "point_cloud.ply"))

@@ -640,7 +640,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _hold_kernel_to_plain(data, gid, starts, stops, gx, tile, *, tolerance=True, offsets=None):
+def _hold_kernel_to_plain(data, gid, starts, stops, gx, tile, *, tolerance=True, offsets=None,
+                          tile0=0):
     """csrc/composite_bwd.cu on the frame, kernel A's accum and tfinal of it
     and seeded O(1) cotangents, on the card: bit-equal to its twin
     composite_tiles_bwd_walk (the same arithmetic and order of sums, so a
@@ -648,10 +649,12 @@ def _hold_kernel_to_plain(data, gid, starts, stops, gx, tile, *, tolerance=True,
     launches bit-equal (no atomics), zero outside every range and, with
     `tolerance`, element by element within BWD_RTOL of the plain version
     plus BWD_ATOL of its row group's largest (the kernel sums the pixels in
-    another order). `offsets`: the frame's per-tile subpixel offsets."""
+    another order). `offsets`: the frame's per-tile subpixel offsets;
+    `tile0`: the grid index of the frame's first tile. Returns the kernel's
+    dgrad and its inputs."""
     from ex4dgs_tpu_torch.bench_frame import cotangents
 
-    kw = dict(grid_x=gx, tile_x=tile[0], tile_y=tile[1], offsets=offsets)
+    kw = dict(grid_x=gx, tile_x=tile[0], tile_y=tile[1], offsets=offsets, tile0=tile0)
     accum, tfinal, _ = trc.composite_tiles_fwd(data, gid, starts, stops, track_idx=False, **kw)
     gacc, acdot, gend = cotangents(accum)
     args = (data, starts, stops, gacc, acdot, gend, tfinal)
@@ -672,6 +675,30 @@ def _hold_kernel_to_plain(data, gid, starts, stops, gx, tile, *, tolerance=True,
     if tolerance:
         errs = trc.bwd_errors(got, want, lo, hi)
         assert all(e[1] <= 1.0 for e in errs.values()), errs
+    return got, args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", CARD_TILES, ids=CARD_IDS)
+def test_backward_kernel_at_tile0_on_card(cuda_device, tile):
+    """The slab branch: a small make_scene frame's tiles from tile0 =
+    grid_x + 1 (not the start of a row) through kernel B at that tile0, held
+    as _hold_kernel_to_plain holds it, and bit-equal to the whole frame's
+    kernel on the same cotangents in the slab's columns."""
+    from test_torch_composite import _scene_frame
+
+    data, gid, starts, stops, gx = _scene_frame(tile, cuda_device)
+    t0 = gx + 1
+    assert t0 % gx
+    got, args = _hold_kernel_to_plain(data, gid, starts[t0:].contiguous(),
+                                      stops[t0:].contiguous(), gx, tile, tile0=t0)
+    _, st, sp, gacc, acdot, gend, tfinal = args
+    full = [torch.cat([torch.zeros((t0, *a.shape[1:]), device=a.device), a])
+            for a in (gacc, acdot, gend, tfinal)]
+    whole = trc.composite_tiles_bwd(data, starts, stops, *full, grid_x=gx, tile_x=tile[0],
+                                    tile_y=tile[1])
+    lo, hi = int(st[0]), int(sp[-1])
+    assert torch.equal(got[:, lo:hi], whole[:, lo:hi])
 
 
 @pytest.mark.cuda

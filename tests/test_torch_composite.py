@@ -269,6 +269,39 @@ def test_adversarial_frame_is_meaningful():
 @pytest.mark.parametrize("frame", ["scene", "adversarial"])
 @pytest.mark.parametrize("tile", [(32, 16), (16, 16), (8, 4), (24, 4)],
                          ids=["32x16", "16x16", "8x4", "24x4"])
+def test_kernel_at_tile0_matches_plain_on_card(cuda_device, frame, tile):
+    """The slab branch: the frame's tiles from tile0 = grid_x + 1 (a first
+    tile that does not start a row, so that a mix-up of the global and the
+    local tile index shows in x as well as in y) through the kernel at that
+    tile0, against the plain version at the same tile0 (as
+    test_kernel_matches_plain_on_card), bit-equal to the whole frame's
+    kernel rows, and unlike the kernel at tile0 = 0 on the same ranges."""
+    make = _scene_frame if frame == "scene" else _adversarial_frame
+    data, gid, starts, stops, gx = make(tile, cuda_device)
+    t0 = gx + 1
+    assert t0 % gx and t0 < starts.shape[0]
+    kw = dict(grid_x=gx, tile_x=tile[0], tile_y=tile[1], track_idx=True)
+    args = (data, gid, starts[t0:].contiguous(), stops[t0:].contiguous())
+    before = kernels.launches["composite_fwd"]
+    got = trc.composite_tiles_fwd(*args, tile0=t0, **kw)
+    whole = trc.composite_tiles_fwd(data, gid, starts, stops, **kw)
+    at_zero = trc.composite_tiles_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["composite_fwd"] == before + 3
+    assert all(torch.equal(a, w[t0:]) for a, w in zip(got, whole))
+    assert not torch.equal(got[0], at_zero[0])
+    want = trc.composite_tiles_plain(*args, tile0=t0, **kw)
+    for a, w in zip(got[:2], want[:2]):
+        assert (a - w).abs().max().item() <= 2e-5
+    rel, _ = trc.tfinal_rel_err(got[1], want[1])
+    assert rel <= trc.TF_RTOL, rel
+    assert (got[2] == want[2]).float().mean().item() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", ["scene", "adversarial"])
+@pytest.mark.parametrize("tile", [(32, 16), (16, 16), (8, 4), (24, 4)],
+                         ids=["32x16", "16x16", "8x4", "24x4"])
 @pytest.mark.parametrize("track_idx", [True, False])
 def test_kernel_matches_plain_on_card(cuda_device, frame, tile, track_idx):
     """csrc/composite_fwd.cu against composite_tiles_plain on the same

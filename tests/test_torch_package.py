@@ -39,8 +39,10 @@ from ex4dgs_tpu_torch.models import density, optimizer, state
 from ex4dgs_tpu_torch.models.config import ModelConfig, OptimizationConfig
 from ex4dgs_tpu_torch.models.temporal import point_data_at_t
 from ex4dgs_tpu_torch.ops import rasterize_cuda
+from ex4dgs_tpu_torch.parallel import make_mesh, step_dp
 from ex4dgs_tpu_torch.probes import outspec, unaligned
 from ex4dgs_tpu_torch.train import __main__ as train_cli
+from ex4dgs_tpu_torch.runtime import distributed
 from ex4dgs_tpu_torch.train import step, trainer
 
 torch.set_num_threads(2)
@@ -61,7 +63,9 @@ def test_the_scan_covers_the_training_entry_point():
                  "eval/metrics.py", "eval/lpips.py", "viewer.py", "compat.py",
                  "runtime/profiling.py", "synthetic.py", "quality.py", "native/__init__.py",
                  "preprocess/colmap_db.py", "preprocess/llff.py", "preprocess/pipeline.py",
-                 "preprocess/technicolor.py", "convert.py", "ops/rasterize_dense.py"):
+                 "preprocess/technicolor.py", "convert.py", "ops/rasterize_dense.py",
+                 "parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
+                 "parallel/step_dp.py", "runtime/distributed.py"):
         assert f"ex4dgs_tpu_torch/{path}" in names, path
 
 
@@ -97,7 +101,8 @@ def test_port_loads_without_jax_in_a_fresh_interpreter():
         "import ex4dgs_tpu_torch.viewer, ex4dgs_tpu_torch.compat, ex4dgs_tpu_torch.runtime\n"
         "import ex4dgs_tpu_torch.quality, ex4dgs_tpu_torch.native, ex4dgs_tpu_torch.convert\n"
         "import ex4dgs_tpu_torch.preprocess.pipeline, ex4dgs_tpu_torch.preprocess.technicolor\n"
-        "import ex4dgs_tpu_torch.ops.rasterize_dense\n"
+        "import ex4dgs_tpu_torch.ops.rasterize_dense, ex4dgs_tpu_torch.parallel.step_dp\n"
+        "import ex4dgs_tpu_torch.runtime.distributed\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not loaded, loaded\n"
@@ -132,6 +137,16 @@ def _call(entry, device, model, cfg, cam):
     kw = {} if device is None else {"device": device}
     if entry == "make_scene":
         return synthetic.make_scene(n_static=50, n_dynamic=5, **kw)
+    if entry == "make_mesh":
+        return make_mesh(**kw)
+    if entry == "initialize":
+        return distributed.initialize(**kw)
+    if entry == "make_sharded_train_step":
+        statics = step.StepStatics(cfg=cfg, opt=OptimizationConfig(), spatial_lr_scale=1.0,
+                                   capacity=65536)
+        sharded = step_dp.make_sharded_train_step(statics, make_mesh(device="cpu"), **kw)
+        return sharded(model, optimizer.init_state(model.params, device="cpu"), cam,
+                       torch.zeros((cam.height, cam.width, 3)), 1.0, (0, 0, 0), 1)
     if entry == "ring_cameras":
         return synthetic.ring_cameras(2, 3.0, 64, 32, **kw)
     if entry == "lookat_camera":
@@ -261,7 +276,7 @@ ENTRIES = ("make_scene", "ring_cameras", "lookat_camera", "empty_model", "model_
            "probe_unaligned_main", "probe_outspec_main", "probe_make_src", "push",
            "render_camera", "prefetcher_cache", "trainer", "train_cli", "render_set",
            "render_cli", "LPIPS", "viewer_receive", "make_surface_scene", "rig_cameras",
-           "CGaussianModel", "quality")
+           "CGaussianModel", "quality", "make_mesh", "initialize", "make_sharded_train_step")
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -305,6 +320,59 @@ def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry):
         assert out.model.device.type == "cpu"
     if entry == "quality":
         assert out["device"] == "cpu" and out["iters"] == 2 and np.isfinite(out["psnr"])
+    if entry == "make_mesh":
+        assert out.device.type == "cpu" and out.shape == {"data": 1, "gauss": 1}
+    if entry == "initialize":
+        assert out["process_count"] == 1 and out["backend"] == "none"
+    if entry == "make_sharded_train_step":
+        assert out.model.device.type == "cpu" and bool(torch.isfinite(out.loss))
+
+
+def test_nccl_with_more_ranks_than_cards_raises(monkeypatch):
+    """No automatic switch to gloo: NCCL asked for (the default on CUDA)
+    with more ranks on this host than it has cards, as torchrun's
+    LOCAL_WORLD_SIZE says, raises before it joins anything, naming
+    --dist_backend gloo. Without LOCAL_WORLD_SIZE the count of ranks on a
+    host is not known before the job starts, so the check runs after
+    joining (tests/test_torch_parallel_step.py holds it on spawned ranks)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for backend in (None, "nccl"):
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+        with pytest.raises(RuntimeError, match="--dist_backend gloo"):
+            distributed.initialize("localhost:1", 2, 0, device="cuda", backend=backend)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "3")
+    with pytest.raises(RuntimeError, match="3 ranks share 1"):
+        distributed.initialize(device="cuda")
+
+
+class _Joined(Exception):
+    pass
+
+
+@pytest.mark.parametrize("local_world", [None, "1"], ids=["flags", "torchrun"])
+def test_nccl_ranks_on_other_hosts_are_not_refused(monkeypatch, local_world):
+    """Two hosts of one card each, joined by the CLI's JAX-style flags
+    (--num_processes 2, no LOCAL_WORLD_SIZE) or by torchrun
+    (LOCAL_WORLD_SIZE=1): the world outnumbers this host's cards, and
+    initialize goes on to join the job over NCCL."""
+    joined = []
+
+    def join(backend, **kw):
+        joined.append((backend, kw["world_size"], kw["rank"]))
+        raise _Joined
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda card: None)
+    monkeypatch.setattr(distributed.dist, "init_process_group", join)
+    if local_world is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", local_world)
+    with pytest.raises(_Joined):
+        distributed.initialize("localhost:1", 2, 1, device="cuda")
+    assert joined == [("nccl", 2, 1)]
 
 
 def test_bench_scene_needs_cuda_unless_told_cpu(no_cuda):
@@ -442,8 +510,9 @@ def test_launch_counter_reset():
     assert sorted(entries) == sorted(kernels.launches) == sorted(kernels._SIGNATURES)
 
 
-# The C entry points of kernels A and B as the sources of the previous
-# revision declared them, before the subpixel `offsets` parameter.
+# The C entry points of kernels A and B as the sources of an earlier
+# revision declared them, before the subpixel `offsets` and the slab's
+# `tile0` parameters.
 _OLDER_DECLARATIONS = {
     "composite_fwd": '''extern "C" int composite_fwd(const void* data, const void* gid, const void* starts,
                              const void* stops, void* accum, void* tfinal, void* bestidx,
@@ -471,16 +540,17 @@ def test_declared_signatures_are_the_wrappers():
 @pytest.mark.parametrize("entry", ["composite_fwd", "composite_bwd"])
 def test_kernel_turns_calls_an_older_source_by_its_own_signature(entry):
     """kernel_turns binds an `--other` source by the declaration in its text
-    and passes arguments by name, so a revision from before the offsets
-    parameter gets its own 14 arguments and the committed one its 15."""
+    and passes arguments by name, so a revision from before the offsets and
+    tile0 parameters gets its own 14 arguments and the committed one its
+    16."""
     from ex4dgs_tpu_torch import kernel_turns
 
     older = kernels.declared_signature(_OLDER_DECLARATIONS[entry], entry)
     committed = kernels.declared_signature((kernels.CSRC / f"{entry}.cu").read_text(), entry)
     old_names, new_names = [n for n, _ in older], [n for n, _ in committed]
-    assert "offsets" not in old_names and "offsets" in new_names
-    assert [n for n in new_names if n != "offsets"] == old_names
-    assert len(older) == 14 and len(committed) == len(kernels._SIGNATURES[entry]) == 15
+    assert "offsets" not in old_names and "offsets" in new_names and "tile0" in new_names
+    assert [n for n in new_names if n not in ("offsets", "tile0")] == old_names
+    assert len(older) == 14 and len(committed) == len(kernels._SIGNATURES[entry]) == 16
     values = {n: f"<{n}>" for n in new_names if n != "stream"}
     assert kernel_turns.call_args(old_names, values, "<s>") == [
         "<s>" if n == "stream" else f"<{n}>" for n in old_names]
@@ -488,6 +558,22 @@ def test_kernel_turns_calls_an_older_source_by_its_own_signature(entry):
         new_names.index("offsets")] is None
     with pytest.raises(ValueError):
         kernels.declared_signature(_OLDER_DECLARATIONS[entry], "composite_other")
+
+
+@pytest.mark.parametrize("wrapper", ["fwd", "bwd"])
+@pytest.mark.parametrize("tile0", [-1, 2**31 - 3, 1.0])
+def test_kernel_wrappers_refuse_a_tile0_the_kernels_do_not_take(wrapper, tile0):
+    """tile0 (the grid index of the first tile) must be an int >= 0 whose
+    last tile fits an int; anything else is refused before anything is
+    built."""
+    kw = dict(grid_x=3, tile_x=32, tile_y=16, tile0=tile0)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="tile0"):
+        if wrapper == "fwd":
+            kernels.composite_fwd(*_wrapper_args(), track_idx=True, **kw)
+        else:
+            kernels.composite_bwd(*_bwd_args(), **kw)
+    assert kernels.launches == before and not kernels._libs
 
 
 @pytest.mark.parametrize("wrapper", ["fwd", "bwd"])
