@@ -3,6 +3,7 @@ paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only 16   # phase 16 and the inputs it needs
+    python3 chip_smoke.py --only 17   # phase 17 (the bench entry point) alone
 
 Phases (any failure ends the script with a non-zero exit and no result line):
 
@@ -54,9 +55,10 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    first's (t = 0).
 7. determinism: two train_steps from the same state give bit-equal params,
    moments and stats.
-8. timing: train ms/iteration by bench.py's recipe (20 iterations from one
-   state, best of 3 windows, each ending in torch.cuda.synchronize), and a
-   torch.profiler breakdown of one step.
+8. timing: train ms/iteration by bench.py's recipe through the bench's own
+   functions (`ex4dgs_tpu_torch.bench.measure` of `train_step_tick`: 20
+   iterations from one state, best of 3 windows, each ending in
+   torch.cuda.synchronize), and a torch.profiler breakdown of one step.
 9. reference: a small scene rendered, and trained one step, on the card and
    on the CPU (plain path) must agree.
 10. probes: the layout probes P1 (`probes.unaligned`: [16, 256] windows of
@@ -197,6 +199,22 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    implies, ms/iteration. Every spawned rank has a time limit and is
    killed on failure.
 
+17. the bench entry point: `python -m ex4dgs_tpu_torch.bench` in a
+   subprocess at its default sizes (bench.py's scene and recipe), then
+   again with EX4DGS_TILE=16x16 EX4DGS_EXACT_SORT=1 and 2 iterations in one
+   window, each under a time limit. Its last line must hold bench.py's keys
+   in order, finite positive rates and times, instances within the
+   capacity, one launch of kernels A and B per fwd+bwd call and per train
+   step and one of A (none of B) per render, the kernel config asked for
+   (32x16 with the packed key, then 16x16 with the exact sort, whose
+   instances must outnumber the first run's) and a `card` naming the card.
+   Both lines are printed; the runs' launches join the kernels line. Then
+   kernels A and B at the second run's shape, in this process: the bench
+   frame at t=1 binned at 16x16 with the exact sort into the capacity the
+   bench sized (its instances and capacity must be the run's), A against
+   its plain version as in phase 3, B bit-equal to its twin and within
+   BWD_RTOL/BWD_ATOL of its plain version as in phase 5.
+
 The lines before the last are the card's name and power limit (as
 nvidia-smi prints them) and a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -275,55 +293,31 @@ def fail(msg: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    if out.returncode != 0:
-        fail(f"nvidia-smi: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit as nvidia-smi prints them."""
+    from ex4dgs_tpu_torch.bench import card
+
+    return card()
 
 
-def profile_frames(frame, n: int = 3, top: int = 12):
-    """Where a call's time goes: torch.profiler over n calls. Returns
-    (wall ms per call under the profiler, device ms per call, device
-    events per call, [(kernel, device ms per call, launches per call)] for
-    the `top` kernels by device time), or None when the profiler saw no
-    device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def report_profile(what: str, fn, card: str, wall_ms: float | None = None) -> None:
+    """Log the breakdown of fn by ex4dgs_tpu_torch.runtime.profiling.
+    profile_calls (3 calls) and the peak memory since the last reset. Given
+    `wall_ms`, fn's ms per call timed without the profiler, also the device
+    busy share, device ms over wall_ms, as the bench's `device_busy_share`."""
+    from ex4dgs_tpu_torch.runtime.profiling import profile_calls
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            frame()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    # Only the device's own events (kernels, copies, fills): an operator's
-    # row repeats the time of the kernels it launched.
-    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    if not rows:
-        return None
-    rows.sort(key=lambda r: -r[1])
-    return wall_ms, sum(r[1] for r in rows), sum(r[2] for r in rows), rows[:top]
-
-
-def report_profile(what: str, fn, card: str) -> None:
-    """Log profile_frames' breakdown of fn and the peak memory since the
-    last reset."""
-    breakdown = profile_frames(fn)
+    breakdown = profile_calls(fn)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if breakdown is None:
         log(f"# profile {what}: device time not measured (the profiler saw no device "
             f"activity); peak memory {peak_gib:.2f} GiB")
         return
     wall_p, dev_p, n_events, rows = breakdown
+    share = ("" if wall_ms is None else f", device busy share {dev_p / wall_ms:.3f} of the "
+             f"{wall_ms:.3f} ms/call timed without the profiler")
     log(f"# profile {what} (torch.profiler, 3 calls): {wall_p:.3f} ms/call wall under the "
-        f"profiler, {dev_p:.3f} ms/call device busy ({100 * dev_p / wall_p:.1f}%) in "
-        f"{n_events:.0f} device kernels and copies per call, peak memory {peak_gib:.2f} GiB; "
-        f"{card}")
+        f"profiler, {dev_p:.3f} ms/call on the device in {n_events:.0f} device kernels and "
+        f"copies per call{share}, peak memory {peak_gib:.2f} GiB; {card}")
     for name, ms_k, count in rows:
         log(f"#   {ms_k:8.4f} ms  x{count:5.1f}  {name[:100]}")
 
@@ -2080,6 +2074,7 @@ def nccl_one_phase(dev, scene, train_ms: float, card: str) -> dict:
     import torch.distributed as dist
 
     from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch.bench import measure
     from ex4dgs_tpu_torch.io.checkpoint import digest
     from ex4dgs_tpu_torch.models.config import OptimizationConfig
     from ex4dgs_tpu_torch.models.density import pull
@@ -2108,33 +2103,26 @@ def nccl_one_phase(dev, scene, train_ms: float, card: str) -> dict:
         torch.cuda.synchronize()
         launches = dict(kernels.launches)
         d_ref, d_a, d_b = (digest(pull(o.model, o.opt_state)) for o in (ref, a, b))
-        windows = []
-        for i in range(2):
-            step(model, state, cam, gt, float(i % 5), bg, 100)
-        torch.cuda.synchronize()
-        for _ in range(3):
-            t0 = time.perf_counter()
-            for i in range(20):
-                step(model, state, cam, gt, float(i % 5), bg, 100)
-            torch.cuda.synchronize()
-            windows.append((time.perf_counter() - t0) / 20 * 1e3)
+        timing = measure(lambda i: step(model, state, cam, gt, float(i % 5), bg, 100), 20, 3,
+                         dev)
         backend = dist.get_backend()
         torch.cuda.reset_peak_memory_stats()
         report_profile("sharded step (1, 1) over NCCL, t=1",
-                       lambda: step(model, state, cam, gt, 1.0, bg, 100), card)
+                       lambda: step(model, state, cam, gt, 1.0, bg, 100), card, timing.ms)
     finally:
         dist.destroy_process_group()
     log(f"# sharded step, world 1 over {backend} ({info}), mesh (1, 1): bit-equal to "
         f"train_step {d_a == d_ref}, two steps from one state bit-equal {d_a == d_b}; loss "
         f"{a.loss.item():.6f} (train_step {ref.loss.item():.6f}); launches {launches}; "
-        f"{min(windows):.3f} ms/iteration by bench.py's recipe (windows "
-        + ", ".join(f"{w:.3f}" for w in windows) + f") against train_step's {train_ms:.3f} "
+        f"{timing.ms:.3f} ms/iteration by bench.py's recipe (windows "
+        + ", ".join(f"{w:.3f}" for w in timing.windows_ms)
+        + f") against train_step's {train_ms:.3f} "
         f"(phase 8); {card}")
     if backend != ("nccl" if dev.type == "cuda" else "gloo") or d_a != d_ref or d_a != d_b:
         fail("the NCCL (1, 1) sharded step is not train_step's, or not deterministic")
     if launches != {**dict.fromkeys(launches, 0), "composite_fwd": 2, "composite_bwd": 2}:
         fail(f"the (1, 1) sharded step launched {launches}, expected one A and one B a step")
-    return {"nccl_launches": launches, "nccl_ms": min(windows)}
+    return {"nccl_launches": launches, "nccl_ms": timing.ms}
 
 
 def _gloo_rank(rank: int, port: int, caps: dict, out_dir: str, device: str,
@@ -2394,11 +2382,160 @@ def multi_gpu_phase(dev, whole_ms: dict, train_ms: float, scene_dir: str, card: 
     return out
 
 
+# Phase 17: the bench entry point, as a user runs it.
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "train_step_mpix_s", "render_mpix_s",
+              "render_noidx_mpix_s", "instances", "capacity", "resolution", "kernel_config")
+BENCH_LAUNCHES = {"fwd_bwd": {"composite_fwd": 1, "composite_bwd": 1},
+                  "train_step": {"composite_fwd": 1, "composite_bwd": 1},
+                  "render": {"composite_fwd": 1, "composite_bwd": 0},
+                  "render_noidx": {"composite_fwd": 1, "composite_bwd": 0}}
+BENCH_TIMEOUT = 300  # seconds for one run of the bench
+BENCH_16X16 = {"EX4DGS_TILE": "16x16", "EX4DGS_EXACT_SORT": "1", "BENCH_ITERS": "2",
+               "BENCH_REPEATS": "1"}
+
+
+def run_bench(env: dict, card: str) -> dict:
+    """python -m ex4dgs_tpu_torch.bench from the repo root with `env` added
+    to the environment, under BENCH_TIMEOUT; logs its lines and returns its
+    last line's object, checked: bench.py's keys in order, finite positive
+    rates, times and busy share, instances within the capacity, the
+    launches per call of BENCH_LAUNCHES, and a card that names this one."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "ex4dgs_tpu_torch.bench"], cwd=root,
+                         env={**os.environ, **env}, capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines:
+        log(out.stdout[-3000:])
+        log(out.stderr[-6000:])
+        fail(f"the bench exited {out.returncode} under {env}")
+    for line in lines[:-1]:
+        if not line.startswith("#"):
+            fail(f"the bench printed a line that is not a comment before its result: {line}")
+        log(f"#   {line}")
+    got = json.loads(lines[-1])
+    log(f"# bench {env or 'defaults'} ({wall:.1f} s): {lines[-1]}")
+    if tuple(got)[:len(BENCH_KEYS)] != BENCH_KEYS:
+        fail(f"the bench's keys {list(got)} do not start with bench.py's {list(BENCH_KEYS)}")
+    if got["metric"] != "rasterizer_fwd_bwd_throughput" or got["unit"] != "Mpixels/s/chip":
+        fail(f"the bench's metric or unit: {got['metric']}, {got['unit']}")
+    numbers = ("value", "vs_baseline", "train_step_mpix_s", "render_mpix_s",
+               "render_noidx_mpix_s", "fwd_bwd_ms", "train_step_ms", "render_ms",
+               "render_noidx_ms", "composite_fwd_ms", "composite_bwd_ms",
+               "train_step_device_ms", "device_busy_share")
+    bad = [k for k in numbers if not (isinstance(got[k], float) and math.isfinite(got[k])
+                                      and got[k] > 0)]
+    if bad or got["device_busy_share"] > 1:
+        fail(f"the bench's {bad or 'device_busy_share'} not finite and positive (share <= 1)")
+    if not 0 < got["instances"] <= got["capacity"]:
+        fail(f"the bench's {got['instances']} instances and capacity {got['capacity']}")
+    per_call = {k: got["launches"][k] for k in BENCH_LAUNCHES}
+    if per_call != BENCH_LAUNCHES:
+        fail(f"the bench's launches per call {per_call}, expected {BENCH_LAUNCHES}")
+    if got["card"] != card:
+        fail(f"the bench names the card {got['card']!r}, nvidia-smi {card!r}")
+    return got
+
+
+def bench_16x16_hold(dev, run: dict, card: str) -> dict:
+    """Kernels A and B on the bench frame at t=1 at the shape of the bench's
+    16x16 run (`run`, its line): 16x16 tiles, the exact depth sort, the
+    capacity the bench sized from its probe. A against its plain version as
+    phase 3 holds it; B against its twin (bit-equal) and its plain version
+    as phase 5 holds it. Returns each kernel's largest difference from
+    plain. These launches are not the main path's and are not counted."""
+    from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch.bench_frame import bench_scene, cotangents, pack_frame
+    from ex4dgs_tpu_torch.kernel_config import KernelConfig
+    from ex4dgs_tpu_torch.ops.rasterize_cuda import (BWD_ATOL, BWD_RTOL,
+                                                     composite_tiles_bwd_plain,
+                                                     composite_tiles_bwd_walk,
+                                                     composite_tiles_plain)
+
+    tx, ty = 16, 16
+    scene = bench_scene(dev, kernel_cfg=KernelConfig(tile_x=tx, tile_y=ty, exact_sort=True))
+    if (scene.total, scene.capacity) != (run["instances"], run["capacity"]):
+        fail(f"the 16x16 bench frame holds {scene.total} instances in {scene.capacity} slots, "
+             f"the bench's run {run['instances']} in {run['capacity']}")
+    data, gid, starts, stops, gx, n_points = pack_frame(scene, tx, ty, exact_sort=True)
+    args = (data, gid, starts, stops)
+    kw = dict(grid_x=gx, tile_x=tx, tile_y=ty, track_idx=True)
+    got = kernels.composite_fwd(*args, **kw)
+    again = kernels.composite_fwd(*args, **kw)
+    want = composite_tiles_plain(*args, **kw)
+    torch.cuda.synchronize()
+    note, ok, err_fwd = fwd_agreement(got, again, want, scene.cfg.far)
+    log(f"# bench frame 16x16, exact sort ({scene.total} instances, capacity "
+        f"{scene.capacity}), composite_fwd vs plain: {note}")
+    if not ok:
+        fail("composite_fwd disagrees with its plain version at 16x16 with the exact sort")
+    if not bool((got[2] >= -1).all()) or int(got[2].max().item()) >= n_points:
+        fail("composite_fwd wrote an id outside [-1, P) at 16x16")
+    acc, tfinal, _ = got
+    del again, want
+    bargs = (data, starts, stops, *cotangents(acc), tfinal)
+    bkw = dict(grid_x=gx, tile_x=tx, tile_y=ty)
+    d_k = kernels.composite_bwd(*bargs, **bkw)
+    d_k2 = kernels.composite_bwd(*bargs, **bkw)
+    d_p = composite_tiles_bwd_plain(*bargs, **bkw)
+    twin = composite_tiles_bwd_walk(*bargs, **bkw)
+    torch.cuda.synchronize()
+    note, ok, err_bwd = bwd_agreement(d_k, d_k2, d_p, twin, int(starts[0].item()),
+                                      int(stops[-1].item()))
+    log(f"# bench frame 16x16, exact sort, composite_bwd vs plain, per element |kernel - "
+        f"plain| <= {BWD_RTOL:g} |plain| + {BWD_ATOL:g} max |plain| per row group: {note}; "
+        f"{card}")
+    if not ok:
+        fail("composite_bwd disagrees with its plain version or its twin at 16x16 with the "
+             "exact sort")
+    return {"composite_fwd": err_fwd, "composite_bwd": err_bwd}
+
+
+def bench_phase(dev, card: str) -> dict:
+    """17: the bench entry point at its defaults, then at 16x16 with the
+    exact sort, then kernels A and B held at that run's shape. Returns the
+    kernels' launches over both runs and their 16x16 differences from
+    plain."""
+    runs = {}
+    for name, env, tile in (("default", {}, (32, 16, False)),
+                            ("16x16", BENCH_16X16, (16, 16, True))):
+        got = runs[name] = run_bench(env, card)
+        kc = got["kernel_config"]
+        if (kc["tile_x"], kc["tile_y"], kc["exact_sort"], kc["tight_cull"]) != (*tile, False):
+            fail(f"the bench under {env} ran at {kc}")
+    if not runs["16x16"]["instances"] > runs["default"]["instances"]:
+        fail(f"16x16 tiles gave {runs['16x16']['instances']} instances, 32x16 "
+             f"{runs['default']['instances']}")
+    err = bench_16x16_hold(dev, runs["16x16"], card)
+    return {name: {"bench_launches": sum(r["launches"]["run"][name] for r in runs.values()),
+                   "bench_16x16_max_abs_err": err[name]}
+            for name in ("composite_fwd", "composite_bwd")}
+
+
+def bench_alone() -> int:
+    """Phase 17 alone (`python3 chip_smoke.py --only 17`): the kernels
+    built, then the bench entry point's two runs."""
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures the port on a GPU")
+    from ex4dgs_tpu_torch import kernels
+
+    card = card_line()
+    kernels.load_all()
+    t0 = time.perf_counter()
+    out = bench_phase(torch.device("cuda"), card)
+    log(f"# phase 17 {time.perf_counter() - t0:.1f} s")
+    print(card, flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
     import ex4dgs_tpu_torch  # noqa: F401  (sets the precision policy)
-    from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch import bench, kernels
     from ex4dgs_tpu_torch.bench_frame import (PROBE_CAPACITY, H, W, bench_scene, cotangents,
                                               cuda_ms, pack_frame)
     from ex4dgs_tpu_torch.models.config import OptimizationConfig
@@ -2546,7 +2683,7 @@ def main() -> int:
         log(f"# FPS recipe t=1 track_idx={track_idx}: {ms_f:.3f} ms/frame, "
             f"{W * H / ms_f / 1e3:.2f} Mpix/s, {1e3 / ms_f:.1f} FPS; {card}")
     torch.cuda.reset_peak_memory_stats()
-    report_profile("render t=1 track_idx=True", lambda: frame(1.0, True), card)
+    report_profile("render t=1 track_idx=True", lambda: frame(1.0, True), card, fps[True])
 
     phase_done(4)
     # -- 5. backward kernel vs plain -------------------------------------
@@ -2646,25 +2783,15 @@ def main() -> int:
 
     phase_done(7)
     # -- 8. timing -----------------------------------------------------------
-    def tick(i):
-        return step(model, state, float(i % 5))
-
-    for i in range(2):
-        tick(i)
-    torch.cuda.synchronize()
-    windows = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for i in range(20):
-            tick(i)
-        torch.cuda.synchronize()
-        windows.append(time.perf_counter() - t0)
-    train_ms = min(windows) / 20 * 1e3
-    log(f"# train step (bench.py recipe: 20 iterations, best of 3 windows): "
-        f"{train_ms:.3f} ms/iteration, {W * H / train_ms / 1e3:.2f} Mpix/s; windows "
-        + ", ".join(f"{w * 1e3 / 20:.3f}" for w in windows) + f" ms/iteration; {card}")
+    tick = bench.train_step_tick(scene, gt, None, dev)
+    timing = bench.measure(tick, 20, 3, dev)
+    train_ms = timing.ms
+    log(f"# train step (bench.py recipe, ex4dgs_tpu_torch.bench.measure: 20 iterations, "
+        f"best of 3 windows): {train_ms:.3f} ms/iteration, {W * H / train_ms / 1e3:.2f} "
+        f"Mpix/s; windows " + ", ".join(f"{w:.3f}" for w in timing.windows_ms)
+        + f" ms/iteration; {card}")
     torch.cuda.reset_peak_memory_stats()
-    report_profile("train step t=1", lambda: tick(1), card)
+    report_profile("train step t=1", lambda: tick(1), card, train_ms)
 
     phase_done(8)
     # -- 9. reference on a small input ------------------------------------
@@ -2727,6 +2854,9 @@ def main() -> int:
                                 os.path.join(tmp12.name, "scene"), card, tmp)
     tmp12.cleanup()
     phase_done(16)
+    torch.cuda.empty_cache()
+    benched = bench_phase(dev, card)
+    phase_done(17)
     log("# phase times (s): " + ", ".join(f"{n} {t:.1f}" for n, t in phase_s)
         + f"; total {sum(t for _, t in phase_s):.1f}")
 
@@ -2744,7 +2874,8 @@ def main() -> int:
                      + evaluation["composite_fwd"]["surface_launches"]
                      + quality["composite_fwd"]["quality_launches"]
                      + cull["composite_fwd"]["tight_cull_launches"]
-                     + multi["composite_fwd"]["multi_gpu_launches"]),
+                     + multi["composite_fwd"]["multi_gpu_launches"]
+                     + benched["composite_fwd"]["bench_launches"]),
         **trainer["composite_fwd"],
         **evaluation["composite_fwd"],
         **quality["composite_fwd"],
@@ -2757,6 +2888,7 @@ def main() -> int:
         "library_ms": None,
         **sub["composite_fwd"],
         **multi["composite_fwd"],
+        **benched["composite_fwd"],
     }, {
         "name": "composite_bwd",
         "route": "cuda",
@@ -2767,7 +2899,8 @@ def main() -> int:
                      + evaluation["composite_bwd"]["viewer_launches"]
                      + quality["composite_bwd"]["quality_launches"]
                      + cull["composite_bwd"]["tight_cull_launches"]
-                     + multi["composite_bwd"]["multi_gpu_launches"]),
+                     + multi["composite_bwd"]["multi_gpu_launches"]
+                     + benched["composite_bwd"]["bench_launches"]),
         **trainer["composite_bwd"],
         **evaluation["composite_bwd"],
         **quality["composite_bwd"],
@@ -2780,6 +2913,7 @@ def main() -> int:
         "library_ms": None,
         **sub["composite_bwd"],
         **multi["composite_bwd"],
+        **benched["composite_bwd"],
     }, *probe_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2794,12 +2928,9 @@ def multi_gpu_alone() -> int:
     scene written. For comparing two trees' multi-GPU paths in one call."""
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
-    from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch import bench, kernels
     from ex4dgs_tpu_torch.bench_frame import (bench_scene, cotangents, cuda_ms, pack_frame,
                                               write_n3v_scene)
-    from ex4dgs_tpu_torch.models.config import OptimizationConfig
-    from ex4dgs_tpu_torch.models.optimizer import init_state
-    from ex4dgs_tpu_torch.train.step import StepStatics, train_step
 
     dev = torch.device("cuda")
     card = card_line()
@@ -2812,23 +2943,11 @@ def multi_gpu_alone() -> int:
     bargs = (f.data, f.starts, f.stops, *cotangents(acc), tf)
     ms_b = cuda_ms(lambda: kernels.composite_bwd(*bargs, grid_x=f.grid_x, tile_x=32,
                                                  tile_y=16), 20)
-    model, cfg, cam, _total, capacity = scene
-    statics = StepStatics(cfg=cfg, opt=OptimizationConfig(), spatial_lr_scale=3.0,
-                          capacity=capacity)
-    gt = torch.zeros((cam.height, cam.width, 3), device=dev)
-    bg = torch.zeros(3, device=dev)
-    state = init_state(model.params, device=dev)
-    windows = []
-    for n in (2, 20, 20, 20):  # bench.py's recipe: warm-up, then the best of 3 windows
-        t0 = time.perf_counter()
-        for i in range(n):
-            train_step(model, state, cam, gt, float(i % 5), bg, 100, statics, device=dev)
-        torch.cuda.synchronize()
-        windows.append((time.perf_counter() - t0) / n * 1e3)
-    train_ms = min(windows[1:])
+    gt = torch.zeros((scene.cam.height, scene.cam.width, 3), device=dev)
+    train_ms = bench.measure(bench.train_step_tick(scene, gt, None, dev), 20, 3, dev).ms
     log(f"# whole frame A {ms_a:.4f} ms, B {ms_b:.4f} ms, train_step {train_ms:.3f} "
         f"ms/iteration; {card}")
-    del scene, f, acc, tf, bargs, model, state
+    del scene, f, acc, tf, bargs, gt
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "scene")
@@ -2842,4 +2961,5 @@ def multi_gpu_alone() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(multi_gpu_alone() if sys.argv[1:] == ["--only", "16"] else main())
+    only = {("--only", "16"): multi_gpu_alone, ("--only", "17"): bench_alone}
+    sys.exit(only.get(tuple(sys.argv[1:]), main)())

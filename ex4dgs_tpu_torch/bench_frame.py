@@ -1,8 +1,8 @@
 """The bench frame the compositing kernels are measured on.
 
-`bench_scene` is bench.py's scene (100k static + 10k dynamic splats, scaling
-clamped to log(0.02)) at 1352x1014, seen by one ring camera, with its
-instance capacity sized from a probe render at t = 1. `pack_frame` packs the
+`bench_scene` is bench.py's scene (by default 100k static + 10k dynamic
+splats, scaling clamped to log(0.02)) at 1352x1014, seen by one ring
+camera, with its instance capacity sized from a probe render at t = 1. `pack_frame` packs the
 instances at t = 1 for the forward kernel at a tile shape: the kernel's
 inputs exactly as the render path builds them (`pack_view`, for any model,
 camera and time). `cotangents` draws the
@@ -54,46 +54,57 @@ class Frame(NamedTuple):
     num_points: int  # Gaussians projected (ids lie in [-1, num_points))
 
 
-def bench_scene(device=None) -> BenchScene:
-    """The bench scene on `device` (cuda unless told otherwise)."""
+def bench_scene(device=None, width: int = W, height: int = H, n_static: int = 100_000,
+                n_dynamic: int = 10_000, probe_capacity: int = PROBE_CAPACITY,
+                kernel_cfg: KernelConfig | None = None) -> BenchScene:
+    """bench.py:90-119's scene on `device` (cuda unless told otherwise):
+    n_static + n_dynamic splats (capacities n_static and n_dynamic + 6384),
+    one ring camera at width x height, and the capacity sized from a probe
+    render at t = 1 with `kernel_cfg` (default 32x16, packed key) into
+    `probe_capacity` slots: min(probe_capacity, round_capacity(total * 5 //
+    4, 65536)). `total` may exceed the probe's capacity; callers check."""
     dev = resolve_device(device)
-    model, cfg = make_scene(n_static=100_000, n_dynamic=10_000, duration=10.0,
-                            static_capacity=100_000, dynamic_capacity=16_384, device=dev)
+    model, cfg = make_scene(n_static=n_static, n_dynamic=n_dynamic, duration=10.0,
+                            static_capacity=n_static, dynamic_capacity=n_dynamic + 6384,
+                            device=dev)
     model.params["scaling"] = torch.clamp_max(model.params["scaling"], math.log(0.02))
-    cam = ring_cameras(1, 3.0, W, H, far=cfg.far, device=dev)[0]
+    cam = ring_cameras(1, 3.0, width, height, far=cfg.far, device=dev)[0]
     probe = render(cam, model, cfg, t=1.0, bg=torch.zeros(3, device=dev),
-                   capacity=PROBE_CAPACITY, device=dev)
+                   capacity=probe_capacity, kernel_cfg=kernel_cfg, device=dev)
     total = int(probe.binning_total.item())
     return BenchScene(model, cfg, cam, total,
-                      min(PROBE_CAPACITY, round_capacity(total * 5 // 4, 65536)))
+                      min(probe_capacity, round_capacity(total * 5 // 4, 65536)))
 
 
 def pack_frame(scene: BenchScene, tile_x: int = 32, tile_y: int = 16,
-               tight_cull: bool = False, capacity: int | None = None) -> Frame:
+               tight_cull: bool = False, capacity: int | None = None,
+               exact_sort: bool = False) -> Frame:
     """The scene's instances at t = 1 (the timestamp bench_scene sized the
-    capacity at), binned (with the tight cull if asked) and packed at
-    tile_x x tile_y, on the scene's device, into `capacity` slots (default
-    the scene's, sized at 32x16 tiles; smaller tiles make more instances:
-    1,146,753 at 16x16)."""
+    capacity at), binned (with the tight cull and the exact depth sort if
+    asked) and packed at tile_x x tile_y, on the scene's device, into
+    `capacity` slots (default the scene's, sized at 32x16 tiles unless
+    bench_scene was told another config; smaller tiles make more
+    instances: 1,146,753 at 16x16)."""
     return pack_view(scene.model, scene.cfg, scene.cam, 1.0, capacity or scene.capacity,
-                     tile_x, tile_y, tight_cull)
+                     tile_x, tile_y, tight_cull, exact_sort)
 
 
 def pack_view(model: GaussianModel, cfg: ModelConfig, cam: RenderCamera, t: float,
               capacity: int, tile_x: int = 32, tile_y: int = 16,
-              tight_cull: bool = False) -> Frame:
+              tight_cull: bool = False, exact_sort: bool = False) -> Frame:
     """The kernels' inputs for `model` seen by `cam` at time t, as the
     render path builds them: binned into `capacity` instance slots (it
     raises if they overflow) and packed at tile_x x tile_y, on the model's
     device."""
-    kcfg = KernelConfig(tile_x=tile_x, tile_y=tile_y, tight_cull=tight_cull).validate()
+    kcfg = KernelConfig(tile_x=tile_x, tile_y=tile_y, exact_sort=exact_sort,
+                        tight_cull=tight_cull).validate()
     with torch.no_grad():
         pts = point_data_at_t(model, cfg, t)
         proj, colors = preprocess_points(pts, cam, cfg, near=cfg.near, far=cfg.far,
                                          kernel_cfg=kcfg)
         gx, gy = tile_grid(cam.width, cam.height, tile_x, tile_y)
-        binning = bin_gaussians(proj, gx, gy, capacity, tight_cull=tight_cull, tile_x=tile_x,
-                                tile_y=tile_y)
+        binning = bin_gaussians(proj, gx, gy, capacity, exact_depth_sort=exact_sort,
+                                tight_cull=tight_cull, tile_x=tile_x, tile_y=tile_y)
         if int(binning.total) > capacity:
             raise ValueError(f"{int(binning.total)} instances overflow capacity {capacity}")
         flow = torch.zeros((proj.xy.shape[0], 3), device=proj.xy.device)

@@ -24,6 +24,7 @@ import torch
 
 from .. import resolve_device
 from ..data.scene import Scene, load_image
+from ..kernel_config import KernelConfig
 from ..models.config import ModelConfig
 from ..models.state import GaussianModel, round_capacity
 from ..rendering import default_capacity, render
@@ -40,22 +41,29 @@ def render_set(model: GaussianModel, cfg: ModelConfig, scene: Scene, split: str,
                save_images: bool = False, measure_fps: bool = True,
                lpips_nets: tuple = ("alex", "vgg"), fps_rounds: int = 20,
                fps_inner: int = 500, fps_warmup: int = 100, timings: dict | None = None,
-               device=None) -> dict:
+               kernel_cfg: KernelConfig | None = None, device=None) -> dict:
     """Evaluate one split on `device` (cuda unless told otherwise; the model
-    must be there). Returns the JAX harness's result dict. `timings`, when
+    must be there). Returns the JAX harness's result dict. Every render of
+    the call (metric frames, their re-renders at a grown capacity, the FPS
+    recipe's probe and timed calls) and the default capacity take
+    `kernel_cfg`, by default `KernelConfig.from_env()` read once per call,
+    as the JAX harness renders with its environment's config. `timings`, when
     given, is filled with what the reference's JSONs do not hold: the
-    metric renders' capacity and overflow retries, the snug capacity, the
+    config rendered with, the metric renders' capacity and overflow retries, the snug capacity, the
     host ms per frame of each stage (render, GT load, PSNR+SSIM,
     ssim_skimage at data range 1 and 2, each LPIPS net) and the FPS
     recipe's ms per call at the metric renders' capacity (one round)."""
     dev = resolve_device(device)
+    kcfg = kernel_cfg or KernelConfig.from_env()
+    if timings is not None:
+        timings["kernel_config"] = json.loads(kcfg.to_json())
     cams = (scene.sampled_test_cameras() if split == "test"
             else scene.sampled_train_cameras())
     if not cams:
         return {"split": split, "n_frames": 0}
     if capacity is None:
         capacity = default_capacity(model.static_capacity + model.dynamic_capacity,
-                                    cams[0].width, cams[0].height)
+                                    cams[0].width, cams[0].height, kcfg)
     bg = torch.tensor([1.0, 1.0, 1.0] if cfg.white_background else [0.0, 0.0, 0.0], device=dev)
     lpips = {n: M.LPIPS(n, device=dev) for n in lpips_nets}
     stages = {k: [] for k in ("render", "gt_load", "psnr_ssim", "ssim_sk", "ssim_sk2",
@@ -67,7 +75,7 @@ def render_set(model: GaussianModel, cfg: ModelConfig, scene: Scene, split: str,
             torch.cuda.synchronize(dev)
 
     def frame(cam, t, cap):
-        return render(cam, model, cfg, t=t, bg=bg, capacity=cap, device=dev)
+        return render(cam, model, cfg, t=t, bg=bg, capacity=cap, kernel_cfg=kcfg, device=dev)
 
     def clock(stage, fn):
         t0 = time.perf_counter()

@@ -18,6 +18,11 @@ configurations can live in one process.
 Tiles become the image by compositing.tiles_to_image, the JAX package's
 default ("naive") assembly; it has no alternative here, so it is no knob.
 
+`KernelConfig.from_env()` reads the JAX package's environment variables
+for these knobs (EX4DGS_TILE, EX4DGS_EXACT_SORT, EX4DGS_TIGHT_CULL); the
+training CLI, the render CLI, `eval/render_sets.py`, `quality.py` and the
+bench render with it.
+
 A checkpoint records the config as `to_json()` (`extra:kernel_config`).
 `from_dict` reads the port's record and the JAX package's alike: it takes
 tile_x, tile_y, exact_sort and tight_cull, and ignores the JAX package's
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,3 +71,20 @@ class KernelConfig:
                             tile_y=int(d.get("tile_y", base.tile_y)),
                             exact_sort=bool(d.get("exact_sort", base.exact_sort)),
                             tight_cull=bool(d.get("tight_cull", base.tight_cull))).validate()
+
+    @staticmethod
+    def from_env() -> "KernelConfig":
+        """The config the environment asks for, parsed as the JAX package's
+        `KernelConfig.from_env` parses it: EX4DGS_TILE as "<x>x<y>"
+        (default 32x16), EX4DGS_EXACT_SORT and EX4DGS_TIGHT_CULL on where
+        they are "1"; validated, so a tile the kernels cannot take raises.
+
+        The JAX package's TPU-only variables are ignored: EX4DGS_PAIR,
+        EX4DGS_GCHUNK, EX4DGS_ALIGN, EX4DGS_BUFS, EX4DGS_PAIR_FWD,
+        EX4DGS_ALIGNED_LAYOUT, EX4DGS_KERNEL_DOT, EX4DGS_POWER,
+        EX4DGS_PACK_VJP, EX4DGS_SSIM_BLUR, EX4DGS_SCAN_DOT and EX4DGS_UNTILE.
+        Each call reads the environment anew (nothing is cached)."""
+        tx, ty = (int(v) for v in os.environ.get("EX4DGS_TILE", "32x16").lower().split("x"))
+        return KernelConfig(tile_x=tx, tile_y=ty,
+                            exact_sort=os.environ.get("EX4DGS_EXACT_SORT", "0") == "1",
+                            tight_cull=os.environ.get("EX4DGS_TIGHT_CULL", "0") == "1").validate()

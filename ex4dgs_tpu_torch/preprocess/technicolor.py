@@ -14,9 +14,16 @@ Per selected frame offset this produces colmap_<offset>/ with
 and then drives the COLMAP CLI (feature extract -> exhaustive match ->
 point_triangulator -> image_undistorter) into sparse/0 — exactly the layout
 data/readers.py::read_technicolor_scene consumes.
+
+The CLI, scripts/preprocess_technicolor.py's surface (host code, no
+--device):
+
+    python -m ex4dgs_tpu_torch.preprocess.technicolor --videopath /data/Technicolor/Birthday
+    python -m ex4dgs_tpu_torch.preprocess.technicolor --root /data/Technicolor --all
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import glob
 import os
@@ -193,3 +200,22 @@ def prepare_technicolor_scene(
         triangulator(project)
         projects.append(project)
     return projects
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(prog="python -m ex4dgs_tpu_torch.preprocess.technicolor")
+    ap.add_argument("--videopath", default="", help="one scene directory")
+    ap.add_argument("--root", default="", help="dataset root (with --all)")
+    ap.add_argument("--all", action="store_true", help="prepare all five reference scenes")
+    ap.add_argument("--offsets", type=int, nargs="*", default=None,
+                    help="frame offsets (default: the scene's window start)")
+    args = ap.parse_args(argv)
+    if args.all:
+        for scene in SCENE_WINDOWS:
+            prepare_technicolor_scene(os.path.join(args.root, scene), offsets=args.offsets)
+    else:
+        prepare_technicolor_scene(args.videopath, offsets=args.offsets)
+
+
+if __name__ == "__main__":
+    main()

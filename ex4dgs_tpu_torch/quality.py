@@ -39,6 +39,11 @@ kernels' launches by stage.
 capacity 256k, its schedule scaled to --iters, default 1200, the held-out
 PSNR every iters // 8): a run the CPU finishes. It measures no FPS.
 
+Every render (ground truth, training, held-out frames, FPS) takes the
+tile shape, depth sort and tight cull of EX4DGS_TILE, EX4DGS_EXACT_SORT and
+EX4DGS_TIGHT_CULL (`KernelConfig.from_env`), as the probe renders with its
+environment's config; SUMMARY's `kernel_config` records it.
+
 The ground truth is rendered on every run (the script reuses PNGs it finds
 on disk). The port's Trainer has no `max_per_tile` or `backend`: the card
 always composites with the kernels.
@@ -61,6 +66,7 @@ from .data.readers import PointCloud, SceneInfo
 from .data.scene import Scene
 from .eval.metrics import ssim as ssim_torch
 from .eval.metrics import ssim_skimage
+from .kernel_config import KernelConfig
 from .models.config import ModelConfig, OptimizationConfig
 from .models.state import create_from_pcd, round_capacity
 from .models.temporal import point_data_at_t
@@ -131,8 +137,10 @@ def build_target(cfg: ModelConfig, target: str, preset: str, device=None):
 
 
 def render_ground_truth(target_model, cams, cfg: ModelConfig, out_dir: str, capacity: int,
-                        device=None) -> list[CameraInfo]:
-    """Every camera at t = 0..N_T-1 rendered, clipped and saved as 8-bit PNG
+                        device=None, kernel_cfg: KernelConfig | None = None
+                        ) -> list[CameraInfo]:
+    """Every camera at t = 0..N_T-1 rendered with `kernel_cfg` (default
+    32x16, packed key), clipped and saved as 8-bit PNG
     (_tpu_quality2.py:69-88): the CameraInfos, camera-major. Raises if a
     frame overflows the capacity."""
     from PIL import Image
@@ -146,7 +154,8 @@ def render_ground_truth(target_model, cams, cfg: ModelConfig, out_dir: str, capa
             for t in range(N_T):
                 path = os.path.join(out_dir, f"c{ci}_t{t}.png")
                 res = render(cam, target_model, cfg, t=float(t),
-                             bg=torch.zeros(3, device=dev), capacity=capacity, device=dev)
+                             bg=torch.zeros(3, device=dev), capacity=capacity,
+                             kernel_cfg=kernel_cfg, device=dev)
                 if int(res.binning_total) > capacity:
                     raise RuntimeError(f"ground truth c{ci} t{t}: {int(res.binning_total)} "
                                        f"instances overflow capacity {capacity}")
@@ -244,6 +253,7 @@ def run(args: argparse.Namespace) -> dict:
     W, H = pr["width"], pr["height"]
     capacity = pr["capacity"]
     cfg = model_config(args.soft, args.sh)
+    kcfg = KernelConfig.from_env()
     stages = {}
 
     def stage(name, t0, before):
@@ -259,7 +269,7 @@ def run(args: argparse.Namespace) -> dict:
     t0, seen = time.perf_counter(), {}
     target_model, cams = build_target(cfg, args.target, args.preset, dev)
     infos = render_ground_truth(target_model, cams, cfg, os.path.join(args.out, "frames"),
-                                capacity, dev)
+                                capacity, dev, kcfg)
     train_infos, test_infos = split(infos)
     t0, seen = stage("ground_truth", t0, seen)
 
@@ -273,7 +283,8 @@ def run(args: argparse.Namespace) -> dict:
     scene = Scene(cfg, scene_info=info)
     tr = Trainer(cfg, opt, scene, model=init_model, capacity=capacity, seed=1,
                  test_iterations=held_out_iterations(args.iters, args.preset),
-                 metrics_path=os.path.join(args.out, "metrics.jsonl"), log_every=50, device=dev)
+                 metrics_path=os.path.join(args.out, "metrics.jsonl"), log_every=50,
+                 kernel=kcfg, device=dev)
     t0, seen = stage("setup", t0, seen)
     try:
         metrics = tr.train(iterations=args.iters)
@@ -292,7 +303,7 @@ def run(args: argparse.Namespace) -> dict:
         for inf in test_infos:
             gt = np.asarray(Image.open(inf.image_path), np.float32)[..., :3] / 255.0
             res = render(cams[inf.uid], tr.model, cfg, t=inf.timestamp, bg=bg,
-                         capacity=tr.capacity, device=dev)
+                         capacity=tr.capacity, kernel_cfg=kcfg, device=dev)
             if int(res.binning_total) > tr.capacity:
                 raise RuntimeError(f"held-out {inf.image_name}: {int(res.binning_total)} "
                                    f"instances overflow capacity {tr.capacity}")
@@ -310,12 +321,13 @@ def run(args: argparse.Namespace) -> dict:
     if pr["fps"]:
         with torch.no_grad():
             probe = render(cams[1], tr.model, cfg, t=1.0, bg=bg, capacity=tr.capacity,
-                           device=dev)
+                           kernel_cfg=kcfg, device=dev)
             rcap = min(capacity, round_capacity(int(probe.binning_total) * 5 // 4, 65536))
             t0, seen = stage("fps_probe", t0, seen)
 
             def frame():
-                render(cams[1], tr.model, cfg, t=1.0, bg=bg, capacity=rcap, device=dev)
+                render(cams[1], tr.model, cfg, t=1.0, bg=bg, capacity=rcap, kernel_cfg=kcfg,
+                       device=dev)
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
 
@@ -356,6 +368,7 @@ def run(args: argparse.Namespace) -> dict:
         "decoder": tr.prefetcher.decoder,
         "device": str(dev),
         "preset": args.preset,
+        "kernel_config": json.loads(kcfg.to_json()),
         "kernel_launches": {name: st["launches"] for name, st in stages.items()},
     }
     losses = np.asarray(metrics["loss"])

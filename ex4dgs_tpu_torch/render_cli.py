@@ -12,9 +12,12 @@ splits and writes `<split>/ours_N/{mean_metrics,all_metrics,
 all_metrics_rows}.json` (`eval/render_sets.py`). A model directory written
 by either package's trainer evaluates here. The run is on `cuda` unless
 --device names another device, and raises where there is no CUDA device.
+It renders with the tile shape, depth sort and tight cull that the JAX
+CLI's EX4DGS_TILE, EX4DGS_EXACT_SORT and EX4DGS_TIGHT_CULL ask for
+(`KernelConfig.from_env`, read by `render_set`), as the JAX CLI does.
 Besides the JAX CLI's output it prints, per split, one line
-`eval_report {json}`: the stage timings of `render_set` and the kernels'
-launch counts.
+`eval_report {json}`: the kernel config `render_set` rendered with, its
+stage timings and the kernels' launch counts.
 """
 from __future__ import annotations
 
@@ -82,6 +85,7 @@ def main(argv=None) -> dict:
                                     timings=timings, device=dev)
         print(split, json.dumps(results[split], indent=1), flush=True)
         print("eval_report " + json.dumps({"split": split, "device": str(dev),
+                                           "kernel_config": timings.pop("kernel_config"),
                                            "timings": timings,
                                            "kernel_launches": dict(kernels.launches)}),
               flush=True)

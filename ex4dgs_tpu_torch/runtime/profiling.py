@@ -3,8 +3,10 @@
 Counterpart of `ex4dgs_tpu/runtime/profiling.py`. The reference only has
 torch.cuda.Event pairs around the step (train.py:70-71,108,175). Here: a
 streaming step timer with percentile summaries and Mpixels/s derivation,
-a `torch.profiler` trace context that writes a Chrome trace, and a
-roofline placement against the H100's data-sheet peaks.
+a `torch.profiler` trace context that writes a Chrome trace, the device
+time of a few calls by kernel and the device busy share
+(`profile_calls`, `device_busy_share`: the bench and chip_smoke.py read
+them), and a roofline placement against the H100's data-sheet peaks.
 """
 from __future__ import annotations
 
@@ -36,6 +38,47 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def profile_calls(fn, n: int = 3, top: int = 12):
+    """Where a call's time goes on the current CUDA device: torch.profiler
+    over n calls of fn(), the last ending in `torch.cuda.synchronize()`.
+    Returns (wall ms per call under the profiler, device ms per call,
+    device events per call, [(kernel, device ms per call, launches per
+    call)] for the `top` kernels by device time), or None when the profiler
+    saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    # Only the device's own events (kernels, copies, fills): an operator's
+    # row repeats the time of the kernels it launched.
+    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not rows:
+        return None
+    rows.sort(key=lambda r: -r[1])
+    return wall_ms, sum(r[1] for r in rows), sum(r[2] for r in rows), rows[:top]
+
+
+def device_busy_share(fn, wall_ms: float, n: int = 3) -> tuple:
+    """(device ms per call of fn(), its share of `wall_ms`): the device
+    time of every kernel and copy over n calls under torch.profiler
+    (`profile_calls`) over the call's wall time measured without the
+    profiler. The profiler slows the host, so the wall time under it would
+    understate the share. (None, None) when the profiler saw no device
+    time."""
+    breakdown = profile_calls(fn, n)
+    if breakdown is None:
+        return None, None
+    return breakdown[1], breakdown[1] / wall_ms
 
 
 class StepTimer:

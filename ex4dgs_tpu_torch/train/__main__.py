@@ -19,7 +19,10 @@ kernels' launch counts and the host clock per iteration.
 --port N (with --ip, default 127.0.0.1) serves the live SIBR viewer
 (`viewer.NetworkViewer`) between steps; 0, the default, disables it.
 --debug writes `debug/nan_snapshot_N.npz` under the model path when a step
-produces NaNs.
+produces NaNs. The tile shape, depth sort and tight cull come from the JAX
+CLI's EX4DGS_TILE, EX4DGS_EXACT_SORT and EX4DGS_TIGHT_CULL
+(`KernelConfig.from_env`); a resume keeps the config its checkpoint
+records.
 
 Several ranks (one process each): --mesh_data D --mesh_gauss G trains D
 cameras per iteration with the splats and tiles sharded over G
@@ -144,9 +147,10 @@ def main(argv=None) -> int:
     scene = Scene(cfg, model_path=model_path, save_input=rank0)
     scene_s = time.perf_counter() - t0
     model = opt_state = None
-    # the JAX CLI's kernel knob from the environment (its EX4DGS_TIGHT_CULL);
-    # a checkpoint's recorded config takes its place on a resume
-    kernel = KernelConfig(tight_cull=os.environ.get("EX4DGS_TIGHT_CULL", "0") == "1")
+    # the JAX CLI's kernel knobs from the environment (EX4DGS_TILE,
+    # EX4DGS_EXACT_SORT, EX4DGS_TIGHT_CULL); a checkpoint's recorded config
+    # takes its place on a resume
+    kernel = KernelConfig.from_env()
     if args.start_checkpoint:
         hm, start_it, extra = load_checkpoint(args.start_checkpoint)
         model, opt_state = push(hm, cfg, device=dev)

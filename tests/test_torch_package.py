@@ -2,7 +2,8 @@
 kernel wrapper accepts.
 
 - No file of ex4dgs_tpu_torch/ (the training CLI `train/__main__.py`, the
-  quality run, the native loader, preprocess and convert included), and
+  quality run, the bench, the native loader, preprocess and its CLIs, and
+  convert included), and
   not chip_smoke.py, imports `jax` or the JAX package
   `ex4dgs_tpu` (an AST scan, and a fresh interpreter that imports the whole
   port and finds neither module loaded).
@@ -15,6 +16,8 @@ kernel wrapper accepts.
   built.
 """
 import ast
+import contextlib
+import io
 import json
 import os
 import pathlib
@@ -65,7 +68,8 @@ def test_the_scan_covers_the_training_entry_point():
                  "preprocess/colmap_db.py", "preprocess/llff.py", "preprocess/pipeline.py",
                  "preprocess/technicolor.py", "convert.py", "ops/rasterize_dense.py",
                  "parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
-                 "parallel/step_dp.py", "runtime/distributed.py"):
+                 "parallel/step_dp.py", "runtime/distributed.py", "bench.py",
+                 "preprocess/n3v.py"):
         assert f"ex4dgs_tpu_torch/{path}" in names, path
 
 
@@ -102,7 +106,8 @@ def test_port_loads_without_jax_in_a_fresh_interpreter():
         "import ex4dgs_tpu_torch.quality, ex4dgs_tpu_torch.native, ex4dgs_tpu_torch.convert\n"
         "import ex4dgs_tpu_torch.preprocess.pipeline, ex4dgs_tpu_torch.preprocess.technicolor\n"
         "import ex4dgs_tpu_torch.ops.rasterize_dense, ex4dgs_tpu_torch.parallel.step_dp\n"
-        "import ex4dgs_tpu_torch.runtime.distributed\n"
+        "import ex4dgs_tpu_torch.runtime.distributed, ex4dgs_tpu_torch.bench\n"
+        "import ex4dgs_tpu_torch.preprocess.n3v\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not loaded, loaded\n"
@@ -237,6 +242,15 @@ def _call(entry, device, model, cfg, cam):
             a.close()
             b.close()
             v.close()
+    if entry == "bench":
+        from unittest import mock
+
+        from ex4dgs_tpu_torch import bench
+
+        small = {"BENCH_W": "64", "BENCH_H": "48", "BENCH_STATIC": "300",
+                 "BENCH_DYNAMIC": "30", "BENCH_ITERS": "1", "BENCH_REPEATS": "1"}
+        with mock.patch.dict(os.environ, small), contextlib.redirect_stdout(io.StringIO()):
+            return bench.main(device=device, argv=[])
     if entry in ("render_set", "render_cli"):
         with tempfile.TemporaryDirectory() as root:
             bench_frame.write_n3v_scene(root, n_cams=2, n_frames=2, n_points=40, width=64,
@@ -276,7 +290,8 @@ ENTRIES = ("make_scene", "ring_cameras", "lookat_camera", "empty_model", "model_
            "probe_unaligned_main", "probe_outspec_main", "probe_make_src", "push",
            "render_camera", "prefetcher_cache", "trainer", "train_cli", "render_set",
            "render_cli", "LPIPS", "viewer_receive", "make_surface_scene", "rig_cameras",
-           "CGaussianModel", "quality", "make_mesh", "initialize", "make_sharded_train_step")
+           "CGaussianModel", "quality", "make_mesh", "initialize", "make_sharded_train_step",
+           "bench")
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -326,6 +341,8 @@ def test_entry_points_need_cuda_unless_told_cpu(no_cuda, entry):
         assert out["process_count"] == 1 and out["backend"] == "none"
     if entry == "make_sharded_train_step":
         assert out.model.device.type == "cpu" and bool(torch.isfinite(out.loss))
+    if entry == "bench":
+        assert out["resolution"] == [64, 48] and out["card"] is None and out["value"] > 0
 
 
 def test_nccl_with_more_ranks_than_cards_raises(monkeypatch):

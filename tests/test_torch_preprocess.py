@@ -17,10 +17,17 @@ tests/test_preprocess_technicolor.py:40.
   same commands as JAX's and the root `convert.py`'s, and raise without a
   `colmap` on PATH; the resolution ladder's images equal the root's;
 - frame extraction hands out what JAX's does (or fails as JAX's fails where
-  no video decoder works).
+  no video decoder works);
+- the CLIs `python -m ex4dgs_tpu_torch.preprocess.n3v` and `.technicolor`
+  take scripts/preprocess_n3v.py's and scripts/preprocess_technicolor.py's
+  flags with their defaults, and on the same captures (the stub COLMAP
+  triangulating) issue the same COLMAP commands, print the same and leave
+  equal databases and model files.
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_preprocess.py
 """
+import argparse
+import importlib.util
 import json
 import os
 import shutil
@@ -348,3 +355,93 @@ def test_extract_frames_as_jax(tmp_path):
         assert len(results["port"]) == len(results["jax"]) > 0
         for g, w in zip(results["port"], results["jax"]):
             np.testing.assert_array_equal(g, w)
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _jax_script(name):
+    """scripts/<name>.py, loaded as a module (it imports the JAX package)."""
+    spec = importlib.util.spec_from_file_location(
+        f"jax_{name}", os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _flags(call, monkeypatch):
+    """{dest: (option strings, default, type, nargs, required, action)} of
+    the parser that call() builds, stopped where it parses."""
+    parsers = []
+
+    def parse_args(self, args=None, namespace=None):
+        parsers.append(self)
+        raise _Parsed
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", parse_args)
+        with pytest.raises(_Parsed):
+            call()
+    return {a.dest: (tuple(a.option_strings), a.default, a.type, a.nargs, a.required,
+                     type(a).__name__) for a in parsers[0]._actions}
+
+
+@pytest.mark.parametrize("name", ["n3v", "technicolor"])
+def test_cli_flags_equal_the_jax_scripts(name, monkeypatch):
+    from ex4dgs_tpu_torch.preprocess import n3v
+
+    port_main = {"n3v": n3v.main, "technicolor": T.main}[name]
+    script = _jax_script(f"preprocess_{name}")
+    got = _flags(lambda: port_main([]), monkeypatch)
+    want = _flags(script.main, monkeypatch)
+    assert got == want and "videopath" in got
+
+
+def test_n3v_cli_equals_jax_script(tmp_path, stub_colmap, monkeypatch, capsys):
+    from ex4dgs_tpu_torch.preprocess import n3v
+
+    script = _jax_script("preprocess_n3v")
+    calls = {}
+    for name in ("port", "jax"):
+        root = tmp_path / name
+        os.makedirs(root)
+        _make_n3v_capture(str(root))
+        argv = ["--videopath", str(root), "--offset", "0", "--frames", "1"]
+        if name == "port":
+            n3v.main(argv)
+        else:
+            monkeypatch.setattr(sys, "argv", ["preprocess_n3v.py", *argv])
+            script.main()
+        assert capsys.readouterr().out == f"prepared {root / 'colmap_0'}\n"
+        calls[name] = _relative(stub_colmap(), root)
+    assert [c[0] for c in calls["port"]] == ["feature_extractor", "exhaustive_matcher",
+                                             "point_triangulator", "image_undistorter"]
+    assert calls["port"] == calls["jax"]
+    _same_tree(str(tmp_path / "port" / "colmap_0"), str(tmp_path / "jax" / "colmap_0"))
+
+
+@pytest.mark.parametrize("all_scenes", [False, True], ids=["videopath-offsets", "all"])
+def test_technicolor_cli_equals_jax_script(all_scenes, tmp_path, stub_colmap, monkeypatch):
+    """One scene at two offsets, and --all over the scene windows (here one
+    scene, Mini, whose window starts at 1)."""
+    from ex4dgs_tpu.preprocess import technicolor as JT
+
+    script = _jax_script("preprocess_technicolor")
+    if all_scenes:
+        for mod in (T, JT, script):
+            monkeypatch.setattr(mod, "SCENE_WINDOWS", {"Mini": (1, 3)})
+    calls = {}
+    for name, main in (("port", T.main), ("jax", script.main)):
+        sd = _make_techni_capture(str(tmp_path / name))
+        main(["--root", str(tmp_path / name), "--all"] if all_scenes
+             else ["--videopath", sd, "--offsets", "1", "2"])
+        calls[name] = _relative(stub_colmap(), tmp_path / name)
+    offsets = [1] if all_scenes else [1, 2]
+    assert len(calls["port"]) == 4 * len(offsets) and calls["port"] == calls["jax"]
+    for offset in offsets:
+        _same_tree(str(tmp_path / "port" / "Mini" / f"colmap_{offset}"),
+                   str(tmp_path / "jax" / "Mini" / f"colmap_{offset}"))
