@@ -2,6 +2,7 @@
 paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only 12   # phases 8 and 12 (step, host reads, trainer)
     python3 chip_smoke.py --only 16   # phase 16 and the inputs it needs
     python3 chip_smoke.py --only 17   # phase 17 (the bench entry point) alone
 
@@ -59,6 +60,11 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    functions (`ex4dgs_tpu_torch.bench.measure` of `train_step_tick`: 20
    iterations from one state, best of 3 windows, each ending in
    torch.cuda.synchronize), and a torch.profiler breakdown of one step.
+   Then the step path's host reads: one train_step, one sharded step at
+   mesh (1, 1) and one render at t = 2.5 on the bench state, and one
+   trainer iteration's dispatch on a tiny on-disk scene, each under
+   torch.cuda.set_sync_debug_mode("error") after a warm-up call; none may
+   wait for the card (its finalize reads by design).
 9. reference: a small scene rendered, and trained one step, on the card and
    on the CPU (plain path) must agree.
 10. probes: the layout probes P1 (`probes.unaligned`: [16, 256] windows of
@@ -75,7 +81,8 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    runs at kernel A's own starts: the bench frame's nonempty tile starts.
    P2a and P2b are then timed in turns against the fill_ calls that write
    the same outputs (kernel, fills, fills, kernel), and each ratio is set
-   beside the spread of its turns.
+   beside the spread of its turns. (P2b against its earlier builds:
+   `python -m ex4dgs_tpu_torch.kernel_turns --other NAME=path.cu`.)
 11. subpixel path: the frame of phase 3 with the bench frame's seeded
    subpixel offsets (bench_frame.bench_offsets, U(-0.5, 0.5) per pixel and
    coordinate) goes through kernel A with offsets, held to its plain
@@ -96,7 +103,8 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    4 cameras x 8 frames of 2704x2028 PNG, 100k points) is trained by the
    training CLI, `python -m ex4dgs_tpu_torch.train --config
    configs/N3V/n3v_base.json` (1352x1014 frames, every point) run as a
-   user runs it, in a process of its own, with only the schedule shortened
+   user runs it (pipelined, the default), in a process of its own, with
+   only the schedule shortened
    (TRAIN_SCHEDULE) so that 150 iterations cross every event kind that the
    schedule reaches before iteration 3000 (densify_and_prune,
    adjust_temp_opa, expand_duration, static->dynamic extraction), with a
@@ -106,8 +114,9 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    train_report.json. Every loss must be finite and the last 10 must
    average below the first 10; every scheduled event kind must have run;
    kernel A must have launched once per train_step (iterations plus
-   overflow retries) and per test render, kernel B once per iteration,
-   nothing else; the PLY and the checkpoint must exist and
+   overflow retries) and per test render, kernel B once per train_step
+   (the overflow gate is on the device: an overflowing attempt runs its
+   backward too), nothing else; the PLY and the checkpoint must exist and
    push(load_checkpoint(...)) on the card must pull back bit-equal to the
    trainer's pull at save (sha256 of every array). Printed: ms/iteration by
    the host clock (whole loop, and without the event iterations), each
@@ -115,11 +124,18 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    the GT cache's decoder (the native libpng pool, or PIL where it does not
    build), hits and bytes; the events the schedule does not reach
    before iteration 3000 (prune_invisible, prune_small) or at all
-   (prune_nan, reset_opacity) are timed on the saved model. Last, the
-   trainer on a tiny scene on the card and on the CPU for the 20
-   iterations before its first event (losses within rtol 1e-5, the same
-   cameras and backgrounds), and a forced overflow on the card (capacity
-   256: one more launch of kernel A per retry, the same first loss).
+   (prune_nan, reset_opacity) are timed on the saved model. The loop
+   pipelined against serial (EX4DGS_PIPELINE=0) at full width in this
+   process, on the CLI run's config and scene at its final capacity, over
+   the iterations before its first event, in turns (pipelined, serial,
+   serial, pipelined): losses and final models bit-equal, no overflow,
+   both ms/iteration printed. Last, the trainer on a tiny scene on the
+   card and on the CPU for the 20 iterations before its first event
+   (losses within rtol 1e-5, the same cameras and backgrounds), and a
+   forced overflow on the card and on the CPU (capacity 256: one more
+   launch of kernels A and B per retry, the same first loss, and the
+   pipelined loop's swap, each overflowed step re-run after the step
+   dispatched behind it, in the same order on both).
 13. eval and viewer path: the render CLI, `python -m
    ex4dgs_tpu_torch.render_cli --model_path <phase 12's model> --iteration
    150 --fps_inner 100`, in a process of its own, on both splits at
@@ -158,9 +174,9 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    trajectory noise), an SSIM below 0.968, a non-finite loss, or kernel
    launches other than the run implies (A: ground truth, steps with their
    overflow retries, test renders, 8 held-out renders, 1 probe and 550 FPS
-   renders; B: one per iteration). Kernels A and B are then held against
-   their plain versions on one training view of the trained model, as
-   phase 12 holds them.
+   renders; B: one per train_step, overflow retries included). Kernels A
+   and B are then held against their plain versions on one training view
+   of the trained model, as phase 12 holds them.
 15. tight cull: the bench frame with KernelConfig.tight_cull off and on,
    the launch counters set to 0 before and read after: render image,
    depth, acc, flow and dominant index bit-equal (track_idx on, without and
@@ -320,6 +336,64 @@ def report_profile(what: str, fn, card: str, wall_ms: float | None = None) -> No
         f"copies per call{share}, peak memory {peak_gib:.2f} GiB; {card}")
     for name, ms_k, count in rows:
         log(f"#   {ms_k:8.4f} ms  x{count:5.1f}  {name[:100]}")
+
+
+def sync_check(dev, scene, gt, statics, card: str) -> None:
+    """Phase 8's check that the step path makes no host read: one
+    train_step, one sharded step at mesh (1, 1) and one render at t = 2.5
+    (dynamic points in view) on the bench state, and one trainer
+    iteration's dispatch on a tiny on-disk scene, each after a warm-up call,
+    under torch.cuda.set_sync_debug_mode("error") (runtime.profiling.
+    host_syncs). Fails if any of them waits for the card."""
+    from ex4dgs_tpu_torch import upload
+    from ex4dgs_tpu_torch.bench_frame import write_n3v_scene
+    from ex4dgs_tpu_torch.data.readers import read_n3v_scene
+    from ex4dgs_tpu_torch.data.scene import Scene
+    from ex4dgs_tpu_torch.models.config import ModelConfig, OptimizationConfig
+    from ex4dgs_tpu_torch.models.optimizer import init_state
+    from ex4dgs_tpu_torch.parallel import make_mesh
+    from ex4dgs_tpu_torch.parallel.step_dp import make_sharded_train_step
+    from ex4dgs_tpu_torch.rendering import render
+    from ex4dgs_tpu_torch.runtime.profiling import host_syncs
+    from ex4dgs_tpu_torch.train.step import train_step
+    from ex4dgs_tpu_torch.train.trainer import Trainer
+
+    model, cfg, cam, _, capacity = scene
+    state = init_state(model.params, device=dev)
+    bg = torch.zeros(3, device=dev)
+    sharded = make_sharded_train_step(statics, make_mesh(device=dev), device=dev)
+    calls = {
+        "train_step": lambda: train_step(model, state, cam, gt, 2.5, bg, 100, statics,
+                                         device=dev),
+        "sharded step (1, 1)": lambda: sharded(model, state, cam, gt, 2.5, bg, 100),
+        "render t=2.5": lambda: render(cam, model, cfg, t=2.5, bg=bg, capacity=capacity,
+                                       device=dev),
+    }
+    found = {}
+    for name, fn in calls.items():
+        fn()
+        found[name] = host_syncs(fn)
+    with tempfile.TemporaryDirectory(prefix="ex4dgs_sync_") as root:
+        write_n3v_scene(root, n_cams=4, n_frames=6, n_points=300, width=640, height=480, seed=1)
+        tcfg = ModelConfig(source_path=root, loader="neural3dvideo", resolution=8, duration=-1,
+                           time_interval=2, time_pad=1, start_duration=2, near=0.05, far=50.0)
+        opt = OptimizationConfig(iterations=10, densify_from_iter=1000, extract_from_iter=1000,
+                                 progressive_growing_steps=1000, random_background=True)
+        tr = Trainer(tcfg, opt, Scene(tcfg, scene_info=read_n3v_scene(root, tcfg)),
+                     capacity=65536, seed=11, device=dev)
+        tr.train(iterations=3)
+        c = tr.scene.sampled_train_cameras()[0]
+        g = tr.prefetcher.load(c)
+        bg_np = np.random.default_rng(0).uniform(size=3).astype(np.float32)
+        found["trainer dispatch"] = host_syncs(
+            lambda: tr._dispatch(4, c, c, g, upload(bg_np, dev), [c]))
+        tr.close()
+    log("# no host read (torch.cuda.set_sync_debug_mode('error'), after one warm-up call "
+        "each): " + "; ".join(f"{k} {'none' if not v else v}" for k, v in found.items())
+        + f"; {card}")
+    if any(found.values()):
+        fail("a call on the step path waits for the card: "
+             + "; ".join(f"{k}: {v}" for k, v in found.items() if v))
 
 
 def walked_pairs(data, starts, stops, grid_x, tile_x, tile_y, chunk=64, tile_batch=256,
@@ -885,12 +959,13 @@ def run_cli(args: list, root: str, timeout: int) -> dict:
 def check_launches(what: str, report: dict) -> None:
     """Kernel A once per train_step (iterations, plus one per overflow
     retry), per test render and per viewer request served; kernel B once
-    per iteration; no other kernel."""
+    per train_step too (the overflow gate is on the device, so an
+    overflowing attempt runs its backward as JAX's does); no other
+    kernel."""
     first, last = report["iterations"]
-    iters = last - first + 1
-    want = {"composite_fwd": (iters + report["overflow_retries"] + report["test_renders"]
-                              + report["gui_renders"]),
-            "composite_bwd": iters}
+    attempts = last - first + 1 + report["overflow_retries"]
+    want = {"composite_fwd": attempts + report["test_renders"] + report["gui_renders"],
+            "composite_bwd": attempts}
     got = report["kernel_launches"]
     if got != {**dict.fromkeys(got, 0), **want}:
         fail(f"{what}: kernel launches {got}, the schedule implies {want}")
@@ -1031,6 +1106,7 @@ def trainer_phase(dev, card: str, tmp: str) -> tuple[dict, str, dict]:
     check_launches("trainer path", first)
     if first["test_renders"] == 0 or first["gt_cache"]["hits"] == 0:
         fail("trainer path: no test render or no GT cache hit")
+    serial_vs_pipelined(dev, first, out, card)
 
     # the saved files, and the checkpoint reloaded bit-equal on the card
     ply = os.path.join(out, "point_cloud", f"iteration_{TRAIN_ITERS}", "point_cloud.ply")
@@ -1085,6 +1161,62 @@ def trainer_phase(dev, card: str, tmp: str) -> tuple[dict, str, dict]:
             for name in ("composite_fwd", "composite_bwd")}, out, first
 
 
+def serial_vs_pipelined(dev, first: dict, model_dir: str, card: str) -> None:
+    """The loop pipelined (the default) against serial (EX4DGS_PIPELINE=0)
+    at full width, in this process: the CLI run's config (its
+    cfg_args.json), scene and seed, for the iterations before its first
+    event, at the capacity the CLI run ended with (the run overflows at
+    its first step from the default capacity, and an overflow reorders the
+    pipelined loop's cameras), in turns (pipelined, serial, serial,
+    pipelined). Every run's losses and final model must be bit-equal and
+    none may overflow. Prints each turn's ms/iteration: the mean over the
+    run and the median of its second half (the first epoch decodes its
+    frames)."""
+    from ex4dgs_tpu_torch.data.scene import Scene
+    from ex4dgs_tpu_torch.io.checkpoint import digest
+    from ex4dgs_tpu_torch.kernel_config import KernelConfig
+    from ex4dgs_tpu_torch.models import density as D
+    from ex4dgs_tpu_torch.models.config import ModelConfig, OptimizationConfig, overlay_json
+    from ex4dgs_tpu_torch.train.trainer import Trainer
+
+    args = os.path.join(model_dir, "cfg_args.json")
+    cfg, opt = overlay_json(ModelConfig(), args), overlay_json(OptimizationConfig(), args)
+    pre = min(first["event_iterations"]) - 1
+    turns = []
+    before = os.environ.get("EX4DGS_PIPELINE")
+    try:
+        for name in ("pipelined", "serial", "serial", "pipelined"):
+            os.environ["EX4DGS_PIPELINE"] = "1" if name == "pipelined" else "0"
+            tr = Trainer(cfg, opt, Scene(cfg), capacity=first["capacity"], seed=0,
+                         kernel=KernelConfig.from_env(), device=dev)
+            torch.cuda.synchronize()
+            m = tr.train(iterations=pre)
+            torch.cuda.synchronize()
+            turns.append(dict(name=name, loss=m["loss"], pipeline=m["pipeline"],
+                              overflow=tr.overflow_count, digest=digest(D.pull(tr.model,
+                                                                              tr.opt_state)),
+                              mean=statistics.mean(m["iter_ms"]),
+                              late=statistics.median(m["iter_ms"][pre // 2:])))
+            tr.close()
+    finally:
+        if before is None:
+            os.environ.pop("EX4DGS_PIPELINE", None)
+        else:
+            os.environ["EX4DGS_PIPELINE"] = before
+    same = all(t["loss"] == turns[0]["loss"] and t["digest"] == turns[0]["digest"]
+               for t in turns)
+    log(f"# trainer loop pipelined against serial at full width, iterations 1-{pre} (before "
+        f"the first event), capacity {first['capacity']}, in this process, in turns: "
+        + "; ".join(f"{t['name']} (pipeline {t['pipeline']}) {t['mean']:.3f} ms/iteration "
+                    f"mean, {t['late']:.3f} median of iterations {pre // 2 + 1}-{pre}, "
+                    f"{t['overflow']} overflows" for t in turns)
+        + f"; losses and final models bit-equal {same}; {card}")
+    if not same or any(t["overflow"] for t in turns) or [t["pipeline"] for t in turns] != [
+            True, False, False, True]:
+        fail("trainer path: the pipelined loop and the serial one disagree before the "
+             "first event")
+
+
 def small_trainer_check(dev, card: str) -> dict:
     """The trainer on a tiny on-disk scene (the CPU tests' size) on the
     card and on the CPU, for the 20 iterations before its first event:
@@ -1093,15 +1225,25 @@ def small_trainer_check(dev, card: str) -> dict:
     Then the card's run on through its 120-iteration schedule, where the
     cloud outgrows its static capacity (the growth branch of the capacity
     policy, which the full-width run does not reach), and a forced
-    overflow on the card (starting capacity 256): the same first loss as
-    the run that never overflowed, and one more launch of kernel A per
-    retry. Returns the card runs' launches."""
+    overflow on the card and on the CPU (starting capacity 256): the same
+    first loss as the run that never overflowed, one more launch of
+    kernels A and B per retry, and the pipelined loop's swap (each
+    overflowed step re-run after the step dispatched behind it) in the same
+    order of (iteration, timestamp) on both. Returns the card runs'
+    launches."""
     from ex4dgs_tpu_torch import kernels
     from ex4dgs_tpu_torch.bench_frame import write_n3v_scene
     from ex4dgs_tpu_torch.data.readers import read_n3v_scene
     from ex4dgs_tpu_torch.data.scene import Scene
     from ex4dgs_tpu_torch.models.config import ModelConfig, OptimizationConfig
+    from ex4dgs_tpu_torch.train import trainer as trainer_mod
     from ex4dgs_tpu_torch.train.trainer import Trainer
+
+    step, order = trainer_mod.train_step, []
+
+    def recording(model, opt_state, cam, gt, t, bg, it, statics, **kw):
+        order.append((int(it), float(t)))
+        return step(model, opt_state, cam, gt, t, bg, it, statics, **kw)
 
     n = 20
     launched = dict.fromkeys(kernels.launches, 0)
@@ -1114,14 +1256,21 @@ def small_trainer_check(dev, card: str) -> dict:
                                  densify_until_iter=1000, progressive_growing_steps=40,
                                  make_dynamic_interval=10, extracton_interval=60,
                                  prune_invisible_interval=100000, random_background=True)
-        runs = {}
-        for d, cap, iters in (("cuda", 65536, n), ("cpu", 65536, n), ("cuda", 256, 3)):
+        runs, orders = {}, {}
+        for d, cap, iters in (("cuda", 65536, n), ("cpu", 65536, n), ("cuda", 256, 3),
+                              ("cpu", 256, 3)):
             tr = Trainer(cfg, opt, Scene(cfg, scene_info=read_n3v_scene(root, cfg)),
                          capacity=cap, seed=11, device=d)
             kernels.reset_launches()
-            metrics = tr.train(iterations=iters)
+            order.clear()
+            trainer_mod.train_step = recording
+            try:
+                metrics = tr.train(iterations=iters)
+            finally:
+                trainer_mod.train_step = step
             torch.cuda.synchronize()
             counts = dict(kernels.launches)
+            orders[(d, cap)] = list(order)
             if d == "cuda":
                 launched = {k: launched[k] + counts[k] for k in launched}
             runs[(d, cap)] = (metrics, counts, tr.overflow_count, list(tr.event_log))
@@ -1147,10 +1296,9 @@ def small_trainer_check(dev, card: str) -> dict:
         + f"; launches {counts}; losses finite {np.isfinite(tail['loss']).all()}")
     if not (sc1 > sc0 and np.isfinite(tail["loss"]).all()
             and counts == {**dict.fromkeys(counts, 0), "composite_fwd": steps,
-                           "composite_bwd": opt.iterations - n}):
+                           "composite_bwd": steps}):
         fail("the small trainer's static capacity did not grow on the card, or its run "
-             "through the schedule was not finite or launched other than A per step and B "
-             "per iteration")
+             "through the schedule was not finite or launched other than A and B per step")
     (g, gc, _, glog), (c, cc, _, _) = runs[("cuda", 65536)], runs[("cpu", 65536)]
     rel = np.abs(np.asarray(g["loss"]) - np.asarray(c["loss"])) / np.abs(np.asarray(c["loss"]))
     same_bg = all(np.array_equal(a, b) for a, b in zip(g["backgrounds"], c["backgrounds"]))
@@ -1164,11 +1312,20 @@ def small_trainer_check(dev, card: str) -> dict:
     if gc != {**dict.fromkeys(gc, 0), "composite_fwd": n, "composite_bwd": n} or any(cc.values()):
         fail(f"small trainer launches: card {gc}, cpu {cc}")
     o, oc, retries, _ = runs[("cuda", 256)]
-    log(f"# forced overflow on the card (capacity 256): {retries} retries, launches {oc}, "
-        f"first loss {o['loss'][0]!r} against {g['loss'][0]!r} without the overflow; {card}")
-    if not (retries >= 1 and oc["composite_fwd"] == 3 + retries and oc["composite_bwd"] == 3
-            and o["loss"][0] == g["loss"][0] and o["timestamps"] == g["timestamps"][:3]):
-        fail("the forced overflow did not grow and re-run the same camera once per retry")
+    swap = orders[("cuda", 256)]
+    firsts = orders[("cuda", 65536)]
+    log(f"# forced overflow on the card (capacity 256, pipelined {o['pipeline']}): {retries} "
+        f"retries, launches {oc}, first loss {o['loss'][0]!r} against {g['loss'][0]!r} without "
+        f"the overflow; train_step calls (iteration, timestamp) {swap} on the card, "
+        f"{orders[('cpu', 256)]} on the CPU; {card}")
+    # pipelined, the re-run of step 1 follows step 2's dispatch
+    want_order = [firsts[i] for i in ((0, 1, 0) if o["pipeline"] else (0, 0, 1))]
+    if not (retries >= 1 and oc["composite_fwd"] == 3 + retries
+            and oc["composite_bwd"] == 3 + retries and o["loss"][0] == g["loss"][0]
+            and o["timestamps"] == g["timestamps"][:3] and swap == orders[("cpu", 256)]
+            and swap[:3] == want_order):
+        fail("the forced overflow did not grow and re-run each overflowed camera once per "
+             "retry, in the same order as on the CPU")
     return launched
 
 
@@ -1518,7 +1675,7 @@ def viewer_check(dev, model, cfg, scene, capacity: int, card: str) -> tuple[int,
         f"{report['psnr']!r} over {report['n_frames']} (<= 1e-3 dB), launches {eval_counts}")
     if not (not th.is_alive() and tr.gui_renders == 1 and result.get("verify") == root.encode()
             and counts == {**dict.fromkeys(counts, 0), "composite_fwd": want,
-                           "composite_bwd": 3}):
+                           "composite_bwd": tr.steps}):
         fail("the Trainer did not serve the viewer once during its 3 iterations")
     implied = evaluated["n_frames"] + timings["overflow_retries"]
     if not (evaluated["n_frames"] == report["n_frames"] > 0
@@ -1652,8 +1809,9 @@ def quality_phase(dev, card: str, tmp: str) -> dict:
     than the run implies: kernel A once per ground-truth render (19 x 8),
     per train_step call (iterations and overflow retries), per test render,
     per held-out render (8), for the probe and for each of the 50 + 500 FPS
-    renders; kernel B once per iteration (an attempt that overflows its
-    capacity launches no B and is re-run). Then kernels A and B against
+    renders; kernel B once per train_step call as well (an attempt that
+    overflows its capacity runs its backward, gated on the device, and is
+    re-run). Then kernels A and B against
     their plain versions on one training view of the trained model
     (trainer_kernels_hold). Returns A's and B's launches and errors for the
     kernels line."""
@@ -1696,10 +1854,11 @@ def quality_phase(dev, card: str, tmp: str) -> dict:
     want_a = (n_gt + tr.steps + tr.test_renders + quality.N_T + 1
               + quality.FPS_WARMUP + quality.FPS_RENDERS)
     want = {**dict.fromkeys(launched, 0), "composite_fwd": want_a,
-            "composite_bwd": tr.steps - tr.overflow_count}
+            "composite_bwd": tr.steps}
     log(f"# quality run launches {launched}, the run implies {want} ({n_gt} ground truth + "
         f"{tr.steps} steps + {tr.test_renders} test + {quality.N_T} held-out + 1 probe + "
-        f"{quality.FPS_WARMUP} + {quality.FPS_RENDERS} FPS renders; B once per iteration); by "
+        f"{quality.FPS_WARMUP} + {quality.FPS_RENDERS} FPS renders; B once per step, overflow "
+        f"retries included); by "
         f"stage " + json.dumps(s["kernel_launches"]))
     if not s["loss_finite"]:
         fail("quality run: a non-finite loss")
@@ -2531,6 +2690,44 @@ def bench_alone() -> int:
     return 0
 
 
+def pipeline_alone() -> int:
+    """This slice's phases alone (`python3 chip_smoke.py --only 12`): the
+    kernels built, phase 8 on the bench frame (the step's time, profile and
+    host-read check), then phase 12 (the trainer path, pipelined and
+    serial)."""
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures the port on a GPU")
+    from ex4dgs_tpu_torch import bench, kernels
+    from ex4dgs_tpu_torch.bench_frame import bench_scene
+    from ex4dgs_tpu_torch.models.config import OptimizationConfig
+    from ex4dgs_tpu_torch.train.step import StepStatics
+
+    dev = torch.device("cuda")
+    card = card_line()
+    kernels.load_all()
+    scene = bench_scene(dev)
+    t0 = time.perf_counter()
+    gt = torch.zeros((scene.cam.height, scene.cam.width, 3), device=dev)
+    tick = bench.train_step_tick(scene, gt, None, dev)
+    timing = bench.measure(tick, 20, 3, dev)
+    log(f"# train step (bench.py recipe): {timing.ms:.3f} ms/iteration; windows "
+        + ", ".join(f"{w:.3f}" for w in timing.windows_ms) + f" ms/iteration; {card}")
+    report_profile("train step t=1", lambda: tick(1), card, timing.ms)
+    statics = StepStatics(cfg=scene.cfg, opt=OptimizationConfig(), spatial_lr_scale=3.0,
+                          capacity=scene.capacity)
+    sync_check(dev, scene, gt, statics, card)
+    log(f"# phase 8 {time.perf_counter() - t0:.1f} s")
+    del scene, gt, tick
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out, _, _ = trainer_phase(dev, card, tmp)
+        log(f"# phase 12 {time.perf_counter() - t0:.1f} s")
+    print(card, flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -2792,6 +2989,7 @@ def main() -> int:
         + f" ms/iteration; {card}")
     torch.cuda.reset_peak_memory_stats()
     report_profile("train step t=1", lambda: tick(1), card, train_ms)
+    sync_check(dev, scene, gt, statics, card)
 
     phase_done(8)
     # -- 9. reference on a small input ------------------------------------
@@ -2961,5 +3159,6 @@ def multi_gpu_alone() -> int:
 
 
 if __name__ == "__main__":
-    only = {("--only", "16"): multi_gpu_alone, ("--only", "17"): bench_alone}
+    only = {("--only", "12"): pipeline_alone, ("--only", "16"): multi_gpu_alone,
+            ("--only", "17"): bench_alone}
     sys.exit(only.get(tuple(sys.argv[1:]), main)())

@@ -52,3 +52,26 @@ def resolve_device(device=None) -> torch.device:
             "ex4dgs_tpu_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain CPU path")
     return dev
+
+
+def scalar_on(x, device, dtype=torch.float32) -> torch.Tensor:
+    """x as a 0-d tensor of `dtype` on `device`. A host number is filled in
+    there by a kernel, with no copy from the host; a tensor goes through
+    `upload` (or stays where it is)."""
+    if isinstance(x, torch.Tensor):
+        return upload(x, device, dtype)
+    return torch.full((), x, dtype=dtype, device=device)
+
+
+def upload(x, device, dtype=None) -> torch.Tensor:
+    """x (a number, a numpy array or a tensor) as a tensor on `device`. A
+    host array bound for a CUDA device is staged in pinned memory and
+    copied without blocking: a copy from pageable memory makes the host wait
+    until the device's stream has drained."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+    if dtype is not None:
+        t = t.to(dtype)
+    device = torch.device(device)
+    if t.device.type == "cpu" and device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

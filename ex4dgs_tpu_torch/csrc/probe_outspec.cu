@@ -10,8 +10,10 @@
 //             accum[T, 512, 8] through composite_common.cuh's dense store
 //             (restage included), 2.0 into tfinal[T, 512, 1] and the int 3
 //             into bestidx[T, 512, 1], one coalesced store per thread each;
-//   outspec_b (kernel_b, run_b)  1.0 into the wide out[T, 16, 512], thread p
-//             writing out[t, r, p] for r = 0..15;
+//   outspec_b (kernel_b, run_b)  1.0 into the wide out[T, 16, 512], the
+//             tile's 32 KiB as 2048 float4: thread p stores float4 p,
+//             p + 512, p + 1024 and p + 1536 of its tile (16-byte stores,
+//             a warp's four stores each 512 contiguous bytes);
 //   outspec_c (kernel_b, run_c)  1.0 into accum[T, 512, 8] alone, through
 //             composite_common.cuh's dense store, restage included: kernel
 //             A's accum store measured alone;
@@ -27,7 +29,14 @@
 //
 // What bounds them on the H100: bytes (40, 64, 32, 108 and 128 per pixel),
 // with next to no arithmetic; the question is how near each layout comes to
-// the memory rate.
+// the memory rate. b's first design, 16 4-byte stores per thread, read
+// slower than the fill_ that writes the same bytes in some runs. Its
+// redesign stores 16 bytes at a time, as fill_'s vectorised kernel does.
+// On the H100 it ties fill_, and reads 1-4% slower than the first design
+// in most runs of the two in turns (PERF.md, P2b): float4 blocks of 128 to
+// 1024 threads, a persistent grid striding over the output and streaming
+// (st.global.cs) stores were tried as well, and every layout of this pure
+// write stops near the same rate, short of the data sheet's.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,6 +47,7 @@ namespace {
 constexpr int kPix = 512;    // pixels of a 32x16 tile, one thread each
 constexpr int kWide = 16;    // channels of the wide layout
 constexpr int kWarps = kPix / 32;
+constexpr int kTileFloat4 = kWide * kPix / 4;  // one wide tile: 2048 float4
 
 __device__ __forceinline__ long long pixel_index() {
   return static_cast<long long>(blockIdx.x) * kPix + threadIdx.x;
@@ -78,8 +88,11 @@ outspec_a_kernel(float* __restrict__ accum, float* __restrict__ tfinal,
   bestidx[o] = 3;
 }
 
-__global__ void __launch_bounds__(kPix) outspec_b_kernel(float* __restrict__ out) {
-  store_wide(out, 1.f);
+__global__ void __launch_bounds__(kPix) outspec_b_kernel(float4* __restrict__ out) {
+  const float4 v = make_float4(1.f, 1.f, 1.f, 1.f);
+  float4* o = out + static_cast<long long>(blockIdx.x) * kTileFloat4 + threadIdx.x;
+#pragma unroll
+  for (int u = 0; u < kTileFloat4 / kPix; ++u) o[u * kPix] = v;
 }
 
 __global__ void __launch_bounds__(kPix) outspec_c_kernel(float* __restrict__ accum) {
@@ -122,7 +135,7 @@ extern "C" int outspec_a(void* accum, void* tfinal, void* bestidx, int num_tiles
 }
 
 extern "C" int outspec_b(void* out, int num_tiles, void* stream) {
-  outspec_b_kernel<<<num_tiles, kPix, 0, as_stream(stream)>>>(static_cast<float*>(out));
+  outspec_b_kernel<<<num_tiles, kPix, 0, as_stream(stream)>>>(static_cast<float4*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,7 +21,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, upload
 
 from .cameras import Camera, camera_from_info, camera_to_json
 from .readers import SCENE_READERS, SceneInfo
@@ -183,7 +183,8 @@ class ImagePrefetcher:
     the cache, `decodes` frames decoded; `decode_ms` holds each PIL
     decode's host-clock time in its worker thread, `wait_ms` the time the
     consumer waited on each decoded frame (either decoder) and `upload_ms`
-    each upload's."""
+    each upload's host time (staged in pinned memory and queued without
+    blocking on a CUDA device: `upload`)."""
 
     def __init__(self, workers: int = 4, lookahead: int = 8, native: bool = True,
                  device_cache_mb: float | None = None, device=None):
@@ -256,7 +257,7 @@ class ImagePrefetcher:
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         t0 = time.perf_counter()
         self.decodes += 1
-        img = torch.from_numpy(arr).to(self.device)
+        img = upload(arr, self.device)
         self.upload_ms.append((time.perf_counter() - t0) * 1e3)
         return img
 

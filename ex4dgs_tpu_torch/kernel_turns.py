@@ -1,16 +1,17 @@
-"""Time kernel A (csrc/composite_fwd.cu) or kernel B (csrc/composite_bwd.cu)
-in turns against other builds of its C entry point, on the bench frame, and
-compare their outputs.
+"""Time kernel A (csrc/composite_fwd.cu), kernel B (csrc/composite_bwd.cu)
+or probe P2b (csrc/probe_outspec.cu's outspec_b) in turns against other
+builds of its C entry point, and compare their outputs.
 
     python -m ex4dgs_tpu_torch.kernel_turns --other NAME=path/to/composite_fwd.cu ...
     python -m ex4dgs_tpu_torch.kernel_turns --other NAME=path/to/composite_bwd.cu ...
+    python -m ex4dgs_tpu_torch.kernel_turns --other NAME=path/to/probe_outspec.cu ...
     python -m ex4dgs_tpu_torch.kernel_turns --offsets [--other ...]
 
-Each `--other` source exports `composite_fwd` or `composite_bwd` (an
-earlier revision of the kernel, or a variant of it) and is built with the
-package's nvcc flags into `_build/` beside its source; the entry point it
-exports decides which committed kernel it is held against (with no
-`--other`, kernel A alone is timed). Its arguments are passed by name, as
+Each `--other` source exports `composite_fwd`, `composite_bwd` or
+`outspec_b` (an earlier revision of the kernel, or a variant of it) and is
+built with the package's nvcc flags into `_build/` beside its source; the
+entry point it exports decides which committed kernel it is held against
+(with no `--other`, kernel A alone is timed). Its arguments are passed by name, as
 the `extern "C"` declaration in its source names them
 (kernels.declared_signature), so a revision from before a change of the
 C signature (e.g. one without the subpixel `offsets`) still runs.
@@ -32,14 +33,24 @@ shape the script
     each build's mean of its two turns and its ratio to the committed
     kernel's, beside the card's name and power limit.
 
+P2b's builds fill the probe's f32 [T, 16, 512] (T = 2752), must equal
+its plain version (every element 1.0) and are timed against each other
+and against `fill_` of the same tensor, by probes.readings_ms (each launch
+timed alone after a 512 MiB scratch write; the median of 20 per turn), in
+OUTSPEC_ROUNDS rounds of turns in order and in reverse; each build's mean
+of its turn medians is printed with the spread of its turns, (largest -
+smallest) / mean.
+
 It fails when two launches of a build differ, when the committed kernel
-differs from itself or, for kernel B, when any build breaks the tolerance.
+differs from itself or, for kernel B or P2b, when any build breaks the
+tolerance (P2b: any element not 1.0).
 It needs one CUDA device and nvcc, and runs nothing on the CPU.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -55,7 +66,8 @@ from .ops.rasterize_cuda import (BWD_ATOL, BWD_RTOL, TF_RTOL, bwd_errors,
 
 TILES = ((32, 16), (16, 16))
 REPS = 20
-ENTRIES = ("composite_fwd", "composite_bwd")
+ENTRIES = ("composite_fwd", "composite_bwd", "outspec_b")
+OUTSPEC_ROUNDS = 3  # P2b: rounds of turns, each in order, then in reverse
 
 
 def _other(spec: str):
@@ -167,6 +179,44 @@ def _bwd_runs(frame, tile, offsets, others, dev):
     return runs, check, ("dgrad",)
 
 
+def outspec_b_turns(others, dev, card: str) -> bool:
+    """P2b's committed kernel, the other builds of `outspec_b` and fill_ of
+    the same tensor: each build held to the plain version, then timed in
+    turns. Returns whether every build agreed."""
+    from .probes import outspec, readings_ms
+
+    t = outspec.T
+    want = outspec.fill_b_plain(t, dev)
+    wide = torch.empty_like(want)
+    runs = {"committed": lambda: (kernels.outspec_b(t, dev),)}
+    runs.update({name: _launcher(bound, lambda: (torch.empty_like(want),),
+                                 lambda outs: dict(out=outs[0].data_ptr(), num_tiles=t))
+                 for name, bound in others})
+    ok = True
+    for name, run in runs.items():
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        equal, repeat = torch.equal(got[0], want), torch.equal(got[0], again[0])
+        print(f"# outspec_b {name}: equal to plain {equal}; two launches bit-equal {repeat}",
+              flush=True)
+        ok = ok and equal and repeat
+    runs["fill_"] = lambda: wide.fill_(1.0)
+    names = list(runs)
+    times = {n: [] for n in names}
+    for _ in range(OUTSPEC_ROUNDS):
+        for n in names + names[::-1]:
+            times[n].append(statistics.median(readings_ms(runs[n], dev, 20)))
+    mean = {n: sum(r) / len(r) for n, r in times.items()}
+    for n in names:
+        print(f"# outspec_b {n}: {mean[n]:.4f} ms (turns "
+              f"{', '.join(f'{x:.4f}' for x in times[n])}; spread "
+              f"{(max(times[n]) - min(times[n])) / mean[n]:.3f}), "
+              f"{mean[n] / mean['committed']:.3f} of committed, "
+              f"{mean[n] / mean['fill_']:.3f} of fill_; {t} tiles of f32 [16, 512]; {card}",
+              flush=True)
+    return ok
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", action="append", default=[], help="NAME=path.cu")
@@ -187,14 +237,21 @@ def main(argv=None) -> int:
         if lacking:
             raise SystemExit(f"--offsets: {lacking} take no subpixel offsets")
     entries = [e for e in ENTRIES if any(o[1] == e for o in others)] or ["composite_fwd"]
-    logs = {f"committed {e}": kernels.build_logs.get(e, "") for e in entries}
+    logs = {f"committed {e}": kernels.build_logs.get(
+        next(src for src, fns in kernels.SOURCES.items() if e in fns), "") for e in entries}
     logs.update({name: text for name, _, _, text in others})
     for name, text in logs.items():
         print("\n".join(f"# {name}: {ln.strip()}" for ln in text.strip().splitlines()))
+    ok = True
+    if "outspec_b" in entries:
+        ok = outspec_b_turns([(name, bound) for name, e, bound, _ in others
+                              if e == "outspec_b"], dev, card)
+        entries.remove("outspec_b")
+    if not entries:
+        return 0 if ok else 1
     scene = bench_scene(dev)
     off_img = bench_offsets(dev) if args.offsets else None
     mode = "with subpixel offsets" if args.offsets else "without offsets"
-    ok = True
     for tx, ty in TILES:
         frame = pack_frame(scene, tx, ty,
                            capacity=None if (tx, ty) == (32, 16) else PROBE_CAPACITY)

@@ -326,7 +326,8 @@ def outspec_a(num_tiles: int, device="cuda"):
 
 
 def outspec_b(num_tiles: int, device="cuda") -> torch.Tensor:
-    """Kernel b: the wide, channel-major layout f32 [T, 16, 512] filled with 1.0."""
+    """Kernel b: the wide, channel-major layout f32 [T, 16, 512] filled with
+    1.0 by 16-byte stores."""
     dev = _outspec_device(num_tiles, device)
     out = torch.empty((num_tiles, 16, OUTSPEC_PIX), dtype=torch.float32, device=dev)
     _launch("probe_outspec", "outspec_b", dev, out.data_ptr(), num_tiles)

@@ -96,8 +96,8 @@ def radam_update(params: dict, grads: dict, state: RAdamState, lrs: dict):
     """One RAdam step; returns (new params, new state). The rectified branch
     (from the 6th step on) depends only on the step count."""
     t = (state.step + 1).to(torch.float32)
-    beta2_t = torch.pow(torch.tensor(BETA2, dtype=torch.float32, device=t.device), t)
-    bias1 = 1.0 - torch.pow(torch.tensor(BETA1, dtype=torch.float32, device=t.device), t)
+    beta2_t = torch.pow(torch.full((), BETA2, dtype=torch.float32, device=t.device), t)
+    bias1 = 1.0 - torch.pow(torch.full((), BETA1, dtype=torch.float32, device=t.device), t)
     bias2 = 1.0 - beta2_t
     rho_inf = 2.0 / (1.0 - BETA2) - 1.0
     rho_t = rho_inf - 2.0 * t * beta2_t / bias2

@@ -10,6 +10,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import scalar_on
 from ..ops import interpolation as interp
 from .config import ModelConfig
 from .state import GaussianModel
@@ -37,9 +38,13 @@ def _sigmoid(x):
 
 def point_data_at_t(model: GaussianModel, cfg: ModelConfig, t,
                     mode: int = 0) -> PointData:
-    """Assemble all rasterizer inputs for timestamp t."""
+    """Assemble all rasterizer inputs for timestamp t (a host number, or a
+    0-d tensor). The keyframes are picked on the host, from t's value; a
+    host number is filled in on the model's device, so the query reads
+    nothing back from it (a tensor on the card is read once)."""
     p = model.params
-    t = torch.as_tensor(t, dtype=torch.float32, device=model.device)
+    t_host = t.item() if isinstance(t, torch.Tensor) else t
+    t = scalar_on(t, model.device)
     use_static = mode in (0, 1)
     use_dynamic = mode in (0, 2) and model.dynamic_capacity > 0
 
@@ -57,7 +62,7 @@ def point_data_at_t(model: GaussianModel, cfg: ModelConfig, t,
         tu = (t + cfg.time_shift) / cfg.time_interval
         env = interp.time_bigaussian(p["motion_opacity_center"], p["motion_opacity_var"],
                                      tu, var_min=cfg.var_pad / cfg.time_interval)
-        k, dt = interp.keyframe_coords(t, cfg.time_shift, cfg.time_interval)
+        k, dt = interp.keyframe_coords(t, cfg.time_shift, cfg.time_interval, t_host=t_host)
         xyz.append(interp.interp_keyframes(_interp_kind(cfg.interp_type), p["motion_xyz"],
                                            k, dt, y_d=p.get("motion_xyz_d")))
         rot.append(interp.interp_quat_keyframes(cfg.rot_interp_type, p["motion_rotation"],

@@ -92,10 +92,12 @@ def bin_gaussians(proj: Projected, grid_x: int, grid_y: int, capacity: int,
     # Slot -> source Gaussian. Zero-count Gaussians put their marker on the
     # same slot as their successor, so the cumsum steps over them; markers
     # at or past the capacity are dropped.
+    # (A dropped marker adds 0 at the last slot: a boolean-mask select of
+    # the kept markers would read their count back to the host.)
     excl = (cum - counts).long()
     keep = excl < capacity
     marks = torch.zeros(capacity, **i32)
-    marks.index_add_(0, excl[keep], torch.ones_like(excl[keep], dtype=torch.int32))
+    marks.index_add_(0, excl.clamp_max(capacity - 1), keep.to(torch.int32))
     gauss_c = (torch.cumsum(marks, 0, dtype=torch.int32) - 1).clamp(0, max(P - 1, 0))
     g = gauss_c.long()
     # A slot's position within its Gaussian's run. The JAX package takes a

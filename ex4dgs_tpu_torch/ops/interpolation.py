@@ -8,6 +8,7 @@ k = floor(t'/interval), dt = (t' mod interval)/interval.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -79,12 +80,20 @@ def time_bigaussian(center, var, t, var_min: float):
     return torch.where(inside, torch.ones_like(opa), opa)
 
 
-def keyframe_coords(t: torch.Tensor, time_shift: float, interval: float):
-    """Scene timestamp (0-d float32 tensor) -> (keyframe index as a Python
-    int, fractional offset as a 0-d tensor). The index is read to the host:
-    it selects which keyframe slices the frame gathers."""
+def keyframe_index(t, time_shift: float, interval: float) -> int:
+    """floor((t + time_shift) / interval) of a host timestamp, in float32
+    with the correctly rounded operations of the JAX package's op."""
+    tt = np.float32(t) + np.float32(time_shift)
+    return int(np.floor(tt / np.float32(interval)))
+
+
+def keyframe_coords(t: torch.Tensor, time_shift: float, interval: float, t_host=None):
+    """Scene timestamp t (0-d float32 tensor) -> (keyframe index as a Python
+    int, fractional offset as a 0-d tensor). The index selects which
+    keyframe slices the frame gathers; it is computed on the host from
+    `t_host`, t's value as a host number, read from t when not given."""
     tt = t + time_shift
-    k = int(torch.floor(tt / interval).item())
+    k = keyframe_index(t.item() if t_host is None else t_host, time_shift, interval)
     dt = torch.remainder(tt, interval) / interval
     return k, dt
 

@@ -15,6 +15,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import upload
+
 
 def l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return torch.abs(pred - gt).mean()
@@ -31,10 +33,13 @@ def psnr(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=8)
-def _gaussian_window(window_size: int, sigma: float) -> tuple:
+def _gaussian_window(window_size: int, sigma: float, dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+    """The normalised 1-D window on `device`, uploaded once (without
+    blocking: upload)."""
     g = [math.exp(-((x - window_size // 2) ** 2) / (2 * sigma**2)) for x in range(window_size)]
     s = sum(g)
-    return tuple(v / s for v in g)
+    return upload(torch.tensor([v / s for v in g], dtype=dtype), device)
 
 
 def _depthwise_blur(img: torch.Tensor, window_size: int, sigma: float) -> torch.Tensor:
@@ -42,7 +47,7 @@ def _depthwise_blur(img: torch.Tensor, window_size: int, sigma: float) -> torch.
     then along W, as depthwise convolutions."""
     c = img.shape[-1]
     half = window_size // 2
-    g = torch.tensor(_gaussian_window(window_size, sigma), dtype=img.dtype, device=img.device)
+    g = _gaussian_window(window_size, sigma, img.dtype, img.device)
     x = img.permute(2, 0, 1)[None]  # [1, C, H, W]
     x = F.conv2d(x, g.view(1, 1, -1, 1).expand(c, 1, -1, 1), padding=(half, 0), groups=c)
     x = F.conv2d(x, g.view(1, 1, 1, -1).expand(c, 1, 1, -1), padding=(0, half), groups=c)

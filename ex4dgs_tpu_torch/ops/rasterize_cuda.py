@@ -191,7 +191,7 @@ def warp_boxes(grid_x: int, num_tiles: int, tile_x: int, tile_y: int,
         pix = _pixels(grid_x, num_tiles, tile_x, tile_y, device, offsets, tile0)
         pix = pix.reshape(num_tiles, -1, 32, 2)
         ok = torch.isfinite(pix).all(-1, keepdim=True)
-        inf = torch.tensor(float("inf"), device=device)
+        inf = torch.full((), float("inf"), device=device)
         lo = torch.where(ok, pix, inf).amin(2)
         hi = torch.where(ok, pix, -inf).amax(2)
         return torch.stack([lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]], dim=-1)

@@ -18,12 +18,13 @@ data order, so D cameras per step accumulate exactly like D reference
 iterations in a row. At mesh (1, 1) the step is `train_step`'s arithmetic,
 bit for bit.
 
-The overflow gate is a collective: every rank takes the MAX of
-binning_total over the job before the backward, and all take the same
-branch (a rank that skipped the backward while another all-reduced would
-wait forever). Every rank takes the same RAdam step from the same
-all-reduced gradient, so the ranks' models stay bit-equal
-(parallel/collectives.py).
+The overflow gate is on the device, as the JAX step's: every rank takes
+the MAX of binning_total over the job, always runs the backward and the
+gradient all-reduces (so every rank issues the same collectives), and
+selects the update or its inputs with torch.where on that MAX, so all
+ranks select alike and nothing is read back to the host. Every rank takes
+the same RAdam step from the same all-reduced gradient, so the ranks'
+models stay bit-equal (parallel/collectives.py).
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, scalar_on, upload
 from ..models.optimizer import RAdamState
 from ..models.state import GaussianModel
 from ..models.temporal import point_data_at_t
@@ -40,8 +41,8 @@ from ..ops.losses import psnr
 from ..ops.projection import Projected
 from ..rendering import (RenderCamera, composite_projected, composite_projected_sharded,
                          preprocess_points)
-from ..train.step import (StepStatics, _apply_update, _gradients, _image_loss, _nan_flag,
-                          _regularizers, _update_stat_accumulators)
+from ..train.step import (StepStatics, _apply_update, _gradients, _image_loss, _regularizers,
+                          _update_stat_accumulators, gate_update)
 from .collectives import all_gather, broadcast_, gather_rows, group_max, group_sum
 from .mesh import Mesh
 
@@ -102,9 +103,10 @@ def make_sharded_train_step(statics: StepStatics, mesh: Mesh, device=None):
 
     model and opt_state replicated (the same bits on every rank; see
     `replicate`), cam, gt [H, W, 3] and t this rank's camera (its data
-    index's entry of the step's camera batch; see `shard_data`). Every rank
-    of the mesh must call it with the same iteration. On a binning overflow
-    anywhere in the job every rank returns its model and state unchanged."""
+    index's entry of the step's camera batch; see `shard_data`; t a host
+    number, as train_step takes it). Every rank of the mesh must call it
+    with the same iteration. On a binning overflow anywhere in the job every
+    rank returns its model and state unchanged."""
     dev = resolve_device(device)
     if dev.type != mesh.device.type:
         raise ValueError(f"the step runs on {dev}, the mesh on {mesh.device}")
@@ -118,8 +120,8 @@ def make_sharded_train_step(statics: StepStatics, mesh: Mesh, device=None):
         params = {k: v.detach().requires_grad_(True) for k, v in model.params.items()}
         m2d_local = torch.zeros((shard, 3), device=mesh.device, requires_grad=True)
         flow_local = torch.zeros((shard, 3), device=mesh.device, requires_grad=True)
-        t = torch.as_tensor(t, dtype=torch.float32, device=mesh.device)
-        bg = torch.as_tensor(bg, dtype=torch.float32, device=mesh.device)
+        t_dev = scalar_on(t, mesh.device)
+        bg = upload(bg, mesh.device, torch.float32)
 
         loss, (res, _ll1, loss_display) = _sliced_loss(
             params, m2d_local, flow_local, model, cam, gt, t, bg, iteration, statics, mesh)
@@ -129,10 +131,6 @@ def make_sharded_train_step(statics: StepStatics, mesh: Mesh, device=None):
         # The gate: res.binning_total is already the worst slab's over gauss;
         # the MAX over the job says whether ANY camera overflowed.
         binning_total = group_max(res.binning_total)
-        if int(binning_total) > statics.capacity:
-            return ShardedStepOutputs(model=model, opt_state=opt_state, loss=loss_mean,
-                                      psnr=psnr_mean, binning_total=binning_total,
-                                      nan_flag=_nan_flag(model))
 
         pgrads, m2d_grad, flow_grad = _gradients(loss, params, m2d_local, flow_local)
         with torch.no_grad():
@@ -155,14 +153,16 @@ def make_sharded_train_step(statics: StepStatics, mesh: Mesh, device=None):
             m2d_full = torch.cat(all_gather(m2d_grad, mesh.gauss_group))
             flow_full = torch.cat(all_gather(flow_grad, mesh.gauss_group))
             per_cam = [all_gather(x, mesh.data_group)
-                       for x in (res.radii, res.visibility_filter, m2d_full, flow_full, t)]
+                       for x in (res.radii, res.visibility_filter, m2d_full, flow_full, t_dev)]
             for radii, vis, m2d, flow, t_d in zip(*per_cam):
                 res_d = res._replace(radii=radii, visibility_filter=vis)
                 new_model = _update_stat_accumulators(new_model, res_d, m2d, flow, t_d,
                                                       iteration, statics.opt)
-        return ShardedStepOutputs(model=new_model, opt_state=new_state, loss=loss_mean,
+            out_model, out_state, nan_flag = gate_update(
+                binning_total <= statics.capacity, new_model, model, new_state, opt_state)
+        return ShardedStepOutputs(model=out_model, opt_state=out_state, loss=loss_mean,
                                   psnr=psnr_mean, binning_total=binning_total,
-                                  nan_flag=_nan_flag(new_model))
+                                  nan_flag=nan_flag)
 
     return step
 

@@ -15,7 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import resolve_device, upload
 from .kernel_config import KernelConfig
 from .models.config import ModelConfig
 from .models.state import GaussianModel
@@ -107,7 +107,7 @@ def render_points(pts: PointData, cam: RenderCamera, cfg: ModelConfig, *, bg,
         capacity = default_capacity(P, cam.width, cam.height, kcfg)
     if flow_dirs is None:
         flow_dirs = torch.zeros((P, 3), dtype=torch.float32, device=dev)
-    bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
+    bg = upload(bg, dev, torch.float32)
     proj, colors = preprocess_points(pts, cam, cfg, near=near, far=far,
                                      scaling_modifier=scaling_modifier,
                                      mean2d_offset=mean2d_offset,
@@ -275,7 +275,9 @@ def composite_projected_slabs(proj: Projected, colors, flow_dirs, cam: RenderCam
 def render(cam: RenderCamera, model: GaussianModel, cfg: ModelConfig, *, t, bg,
            mode: int = 0, device=None, **kwargs) -> RenderResult:
     """Render the model at timestamp t on `device` (cuda unless told
-    otherwise; the model and camera must already be there)."""
+    otherwise; the model and camera must already be there). With t a host
+    number and bg on the device, the render reads nothing back to the
+    host."""
     dev = resolve_device(device)
     _on(dev, "the model", model.params["xyz"])
     pts = point_data_at_t(model, cfg, t, mode=mode)

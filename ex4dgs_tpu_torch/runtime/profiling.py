@@ -6,13 +6,15 @@ streaming step timer with percentile summaries and Mpixels/s derivation,
 a `torch.profiler` trace context that writes a Chrome trace, the device
 time of a few calls by kernel and the device busy share
 (`profile_calls`, `device_busy_share`: the bench and chip_smoke.py read
-them), and a roofline placement against the H100's data-sheet peaks.
+them), a roofline placement against the H100's data-sheet peaks, and
+`host_syncs`, which finds the calls that make the host wait for the card.
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -115,6 +117,34 @@ class StepTimer:
         if pixels:
             out["mpixels_per_s"] = float(pixels / arr.mean() / 1e6)
         return out
+
+
+def host_syncs(fn) -> list[str]:
+    """The calls in fn that make the host wait for the card: [] when there
+    are none. fn runs once under torch.cuda.set_sync_debug_mode("error");
+    if a call raises there, fn runs again under "warn" and the result lists
+    every warning's file:line (the Python line that made the call). The
+    mode is restored either way; on a host without CUDA nothing runs."""
+    if not torch.cuda.is_available():
+        return []
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            return []
+        except RuntimeError as first:
+            torch.cuda.set_sync_debug_mode("warn")
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn()
+            found = [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
+                     if "synchronizing" in str(w.message)]
+            return found or [f"(no warning on the second run) {first}"]
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+        torch.cuda.synchronize()
 
 
 def roofline(flops: float, bytes_accessed: float, seconds: float,

@@ -141,7 +141,7 @@ def main(argv=None) -> int:
     from ..io.checkpoint import digest, load_checkpoint
     from ..kernel_config import KernelConfig
     from ..models.density import push
-    from .trainer import Trainer
+    from .trainer import Trainer, pipelined
 
     t0 = time.perf_counter()
     scene = Scene(cfg, model_path=model_path, save_input=rank0)
@@ -227,6 +227,7 @@ def main(argv=None) -> int:
         "timestamps": [x for r in runs for x in r["timestamps"]],
         "test_reports": [rep for r in runs for rep in r.get("test_reports", [])],
         "iter_ms": iter_ms,
+        "pipeline": pipelined(),
         "ms_per_iteration": statistics.mean(iter_ms) if iter_ms else None,
         "ms_per_iteration_without_events": statistics.mean(quiet_ms) if quiet_ms else None,
         "event_iterations": sorted(events_at),

@@ -13,7 +13,11 @@ side channels as explicit zero leaves that require grad:
 
 A step whose binning overflowed its capacity (the image and the gradients
 come from a truncated instance list) leaves params, moments and stats as
-they were; the caller grows the capacity and runs the camera again.
+they were; the caller grows the capacity and runs the camera again. The
+gate is on the device, as the JAX step's: the update is always computed
+and `torch.where(ok, new, old)` selects it tensor by tensor, so the step
+reads nothing back to the host and the caller may look at binning_total
+whenever it likes.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, scalar_on, upload
 from ..kernel_config import KernelConfig
 from ..models.config import ModelConfig, OptimizationConfig
 from ..models.optimizer import RAdamState, group_lrs, mask_grads, radam_update, scrub_nan
@@ -74,15 +78,15 @@ def _regularizers(params, model: GaussianModel, opt: OptimizationConfig, cfg: Mo
     if opt.static_reg > 0:
         gate = iteration > opt.progressive_growing_steps + opt.make_dynamic_interval
         disp_term = (torch.log(_safe_norm(params["xyz_disp"]) + 0.001) * smask).sum() / n_s
-        loss = loss + torch.where(torch.tensor(gate, device=dev), opt.static_reg * disp_term,
+        loss = loss + torch.where(torch.full((), gate, device=dev), opt.static_reg * disp_term,
                                   zero)
 
     if model.dynamic_capacity > 0:
         dmask = model.dynamic_mask
         n_kf = model.keyframe_capacity
         kf_mask = (torch.arange(n_kf, dtype=torch.int32, device=dev) < model.keyframe_num)[None]
-        gate = (torch.tensor(iteration > opt.progressive_growing_steps * opt.extract_every
-                             + opt.make_dynamic_interval, device=dev) & dmask.any())
+        gate = (torch.full((), iteration > opt.progressive_growing_steps * opt.extract_every
+                           + opt.make_dynamic_interval, device=dev) & dmask.any())
         m = kf_mask[:, 1:] * dmask[:, None]  # [Pd, K-1]
         denom = torch.clamp_min(m.sum(), 1)
         if opt.motion_reg > 0:
@@ -199,35 +203,59 @@ def _nan_flag(model: GaussianModel) -> torch.Tensor:
     return flag
 
 
+def _select(ok: torch.Tensor, new, old):
+    """torch.where(ok, new, old) over every tensor of two models, two
+    optimizer states or two dicts of them, field by field; a tensor the
+    update left as it was comes back as it is."""
+    if isinstance(new, torch.Tensor):
+        return new if new is old else torch.where(ok, new, old)
+    if isinstance(new, dict):
+        return {k: _select(ok, new[k], old[k]) for k in new}
+    return dataclasses.replace(new, **{f.name: _select(ok, getattr(new, f.name),
+                                                         getattr(old, f.name))
+                                       for f in dataclasses.fields(new)})
+
+
+def gate_update(ok: torch.Tensor, new_model: GaussianModel, model: GaussianModel,
+                new_state: RAdamState, opt_state: RAdamState):
+    """(model, optimizer state, NaN flag) of a step gated on the 0-d bool
+    `ok` on the device: the update where ok, the inputs bit for bit where
+    not, and the flag of the selected model."""
+    out_model = _select(ok, new_model, model)
+    out_state = _select(ok, new_state, opt_state)
+    return out_model, out_state, _nan_flag(out_model)
+
+
 def train_step(model: GaussianModel, opt_state: RAdamState, cam: RenderCamera, gt, t, bg,
                iteration, statics: StepStatics, device=None) -> StepOutputs:
     """One iteration on one camera at timestamp t against the image gt
     [H, W, 3], on `device` (cuda unless told otherwise; model, optimizer
     state, camera and gt must already be there). Returns the new model and
-    optimizer state; on a binning overflow both come back unchanged."""
+    optimizer state; on a binning overflow both come back unchanged.
+
+    t is a host number (a 0-d tensor is taken too); bg [3] should be on
+    the device already. Nothing is read back to the host: the step only
+    queues work on the device."""
     dev = resolve_device(device)
     iteration = int(iteration)
     n_total = model.static_capacity + model.dynamic_capacity
     params = {k: v.detach().requires_grad_(True) for k, v in model.params.items()}
     mean2d_offset = torch.zeros((n_total, 3), device=dev, requires_grad=True)
     flow_dirs = torch.zeros((n_total, 3), device=dev, requires_grad=True)
-    t = torch.as_tensor(t, dtype=torch.float32, device=dev)
-    bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
+    t_dev = scalar_on(t, dev)
+    bg = upload(bg, dev, torch.float32)
 
     loss, (res, ll1) = _loss_and_aux(params, mean2d_offset, flow_dirs, model, cam, gt, t, bg,
                                      iteration, statics, device=dev)
     img = res.render.detach()
-    if int(res.binning_total) > statics.capacity:
-        return StepOutputs(model=model, opt_state=opt_state, loss=loss.detach(),
-                           ll1=ll1.detach(), psnr=psnr(img, gt),
-                           visibility=res.visibility_filter,
-                           binning_total=res.binning_total, nan_flag=_nan_flag(model))
-
     pgrads, m2d_grad, flow_grad = _gradients(loss, params, mean2d_offset, flow_dirs)
     with torch.no_grad():
         new_model, new_state = _apply_update(model, opt_state, pgrads, iteration, statics)
-        new_model = _update_stat_accumulators(new_model, res, m2d_grad, flow_grad, t, iteration,
-                                              statics.opt)
-    return StepOutputs(model=new_model, opt_state=new_state, loss=loss.detach(),
+        new_model = _update_stat_accumulators(new_model, res, m2d_grad, flow_grad, t_dev,
+                                              iteration, statics.opt)
+        ok = res.binning_total <= statics.capacity
+        out_model, out_state, nan_flag = gate_update(ok, new_model, model, new_state,
+                                                     opt_state)
+    return StepOutputs(model=out_model, opt_state=out_state, loss=loss.detach(),
                        ll1=ll1.detach(), psnr=psnr(img, gt), visibility=res.visibility_filter,
-                       binning_total=res.binning_total, nan_flag=_nan_flag(new_model))
+                       binning_total=res.binning_total, nan_flag=nan_flag)

@@ -577,6 +577,20 @@ def test_kernel_turns_calls_an_older_source_by_its_own_signature(entry):
         kernels.declared_signature(_OLDER_DECLARATIONS[entry], "composite_other")
 
 
+def test_kernel_turns_binds_probe_outspec_b_by_name():
+    """kernel_turns takes an `--other` build of probe P2b (outspec_b) and
+    passes its output pointer and tile count by the names its declaration
+    gives them."""
+    from ex4dgs_tpu_torch import kernel_turns
+
+    assert "outspec_b" in kernel_turns.ENTRIES
+    text = (kernels.CSRC / "probe_outspec.cu").read_text()
+    names = [n for n, _ in kernels.declared_signature(text, "outspec_b")]
+    assert names == ["out", "num_tiles", "stream"]
+    assert kernel_turns.call_args(names, {"out": 7, "num_tiles": 2752, "gacc": 1}, "<s>") == [
+        7, 2752, "<s>"]
+
+
 @pytest.mark.parametrize("wrapper", ["fwd", "bwd"])
 @pytest.mark.parametrize("tile0", [-1, 2**31 - 3, 1.0])
 def test_kernel_wrappers_refuse_a_tile0_the_kernels_do_not_take(wrapper, tile0):

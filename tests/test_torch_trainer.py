@@ -1,8 +1,9 @@
 """ex4dgs_tpu_torch's Trainer and training CLI on on-disk N3V scenes.
 
-The cases of tests/test_trainer.py on the port (its multi-device case waits
-for the port's multi-GPU slice; its pipelined-against-serial case is
-tests/test_torch_trainer_jax.py, the port against a serial JAX trainer):
+The cases of tests/test_trainer.py on the port (its multi-device case is
+tests/test_torch_trainer_mesh.py; its pipelined-against-serial case is
+tests/test_torch_pipeline.py; tests/test_torch_trainer_jax.py holds the
+port to a serial JAX trainer):
 
 - the schedule runs every event kind it reaches, learns, and stays
   healthy (after events only health and learning are checked: density

@@ -1,8 +1,9 @@
 """ex4dgs_tpu_torch's Trainer against a serial JAX trainer.
 
 tests/test_trainer.py holds the JAX trainer's pipelined loop to its serial
-one (EX4DGS_PIPELINE=0); the port's loop is serial, so here it is held to
-that serial JAX loop, one seed and one on-disk scene for both, each
+one (EX4DGS_PIPELINE=0), and tests/test_torch_pipeline.py the port's; here
+the port's serial loop is held to JAX's serial loop (both read
+EX4DGS_PIPELINE=0), one seed and one on-disk scene for both, each
 trainer's frames decoded by its own default prefetcher (the native libpng
 loader where it builds, PIL where it does not; the two packages' loaders
 are one source and decode alike, tests/test_torch_native.py):
@@ -102,15 +103,15 @@ def runs(textured_scene, tmp_path_factory):
         jtr.rng = Draws(jtr.rng)
         want = jtr.train(iterations=N)
         jtr._metrics_file.close()
+
+        seen = []
+        tr = _trainer(textured_scene, opt_kw, capacity=65536, seed=11, log_every=LOG_EVERY,
+                      test_iterations=TEST_AT, metrics_path=str(out / "port.jsonl"))
+        _record(tr, seen)
+        got = tr.train(iterations=N)
+        tr.close()
     finally:
         mp.undo()
-
-    seen = []
-    tr = _trainer(textured_scene, opt_kw, capacity=65536, seed=11, log_every=LOG_EVERY,
-                  test_iterations=TEST_AT, metrics_path=str(out / "port.jsonl"))
-    _record(tr, seen)
-    got = tr.train(iterations=N)
-    tr.close()
     lines = {}
     for name in ("jax", "port"):
         with open(out / f"{name}.jsonl") as f:
@@ -129,7 +130,7 @@ def test_trainer_matches_serial_jax(runs):
     assert tr.prefetcher.decoder == ("native" if jtr.prefetcher.native is not None else "pil")
     np.testing.assert_array_equal(np.stack(got["backgrounds"]), np.stack(jtr.rng.uniforms))
     assert tr.event_log[-1][:2] == (N, "densify_and_prune")  # the first event after init
-    assert all(it == N for it in got["event_iterations"])
+    assert all(it == N for it in got["event_iterations"]) and got["pipeline"] is False
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5, atol=0)
     np.testing.assert_allclose(got["psnr"], want["psnr"], rtol=1e-5, atol=0)
 

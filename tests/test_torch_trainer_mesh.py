@@ -16,7 +16,12 @@ port; the ranks are tests/test_torch_parallel.py's `spawn_ranks`).
   count and the grown capacity, every loss and PSNR at
   tests/test_torch_trainer_jax.py's rtol 1e-5, the error tracker's windows
   (counts exactly, sums at that rtol), and the parameters after the event
-  at tests/test_torch_train.py's one-step tolerance.
+  at tests/test_torch_train.py's one-step tolerance. Both trainers run
+  serially (EX4DGS_PIPELINE=0): pipelined, JAX's overflow retry re-runs
+  the step dispatched after the overflowed one (tests/test_torch_pipeline.py).
+- The port's Trainer at mesh (2, 1) pipelined against serial, without an
+  overflow (the same steps and bits), and pipelined from the overflowing
+  capacity (the first step re-run after the second), every rank alike.
 - The CLI with --mesh_data 2 --coordinator <file store> --num_processes 2
   --process_id r --dist_backend gloo: rank 0 alone writes the model path's
   files, the report carries both ranks' checkpoint digests, equal, and the
@@ -145,12 +150,14 @@ def _jax_mesh_run(root):
     return metrics, batches, tr
 
 
-def _port_mesh_rank(rank, world, root):
-    """The port's Trainer at mesh (2, 1) on one rank: its metrics, the
-    camera of every step it ran (retries included), and its end state."""
+def _port_mesh_rank(rank, world, root, pipeline="0", capacity=SMALL_CAPACITY):
+    """The port's Trainer at mesh (2, 1) on one rank, serial or pipelined
+    (EX4DGS_PIPELINE): its metrics, the camera of every step it ran
+    (retries included), and its end state."""
+    os.environ["EX4DGS_PIPELINE"] = pipeline
     cfg = ModelConfig(source_path=root, **SCENE)
     scene = Scene(cfg, scene_info=read_n3v_scene(root, cfg))
-    tr = Trainer(cfg, OptimizationConfig(**JAX_SCHEDULE), scene, capacity=SMALL_CAPACITY,
+    tr = Trainer(cfg, OptimizationConfig(**JAX_SCHEDULE), scene, capacity=capacity,
                  seed=11, device="cpu", mesh=make_mesh(world, data=2, gauss=1, device="cpu"))
     steps, step = [], tr._step
 
@@ -165,6 +172,36 @@ def _port_mesh_rank(rank, world, root):
     return dict(loss=metrics["loss"], psnr=metrics["psnr"], steps=steps, params=hm.params,
                 digest=digest(hm), capacity=tr.capacity, overflow=tr.overflow_count,
                 errors=dict(tr.error_tracker.errors), events=[e[:2] for e in tr.event_log])
+
+
+def _port_mesh_pipeline_rank(rank, world, root):
+    """The port's Trainer at mesh (2, 1) on one rank, pipelined and serial
+    at a capacity that never overflows, then pipelined from SMALL_CAPACITY."""
+    runs = {}
+    for name, pipeline, cap in (("pipelined", "1", 65536), ("serial", "0", 65536),
+                                ("overflow", "1", SMALL_CAPACITY)):
+        runs[name] = _port_mesh_rank(rank, world, root, pipeline, cap)
+    return runs
+
+
+def test_trainer_mesh_pipelined_matches_serial(textured_scene, tmp_path):
+    """The mesh path pipelines as the single-card loop does: without an
+    overflow the pipelined and serial loops train the same steps to the
+    same bits on every rank; from an overflowing capacity the first step
+    is re-run after the second (the swap of tests/test_torch_pipeline.py)
+    on every rank alike."""
+    outs = spawn_ranks(_port_mesh_pipeline_rank, 2, tmp_path, textured_scene)
+    for name in ("pipelined", "serial", "overflow"):
+        assert outs[0][name]["digest"] == outs[1][name]["digest"], name
+        assert outs[0][name]["loss"] == outs[1][name]["loss"], name
+    pipe, serial, over = (outs[0][k] for k in ("pipelined", "serial", "overflow"))
+    assert pipe["overflow"] == serial["overflow"] == 0
+    assert pipe["digest"] == serial["digest"] and pipe["loss"] == serial["loss"]
+    assert [s[:2] for s in pipe["steps"]] == [s[:2] for s in serial["steps"]]
+    firsts = [s[:2] for s in serial["steps"]]
+    assert over["overflow"] >= 1 and [s[:2] for s in over["steps"][:3]] == [
+        firsts[0], firsts[1], firsts[0]]
+    assert np.isfinite(over["loss"]).all() and over["loss"][0] == serial["loss"][0]
 
 
 def test_trainer_mesh_matches_jax(textured_scene, tmp_path):

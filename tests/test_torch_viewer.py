@@ -258,9 +258,11 @@ def test_train_cli_serves_the_viewer(scene_root, tmp_path):
 
 
 def test_debug_snapshot_has_jax_keys(scene_root, tmp_path, monkeypatch):
-    """--debug with a forced NaN flag at iteration 2: debug/nan_snapshot_2.npz,
-    with the keys, shapes and dtypes of the JAX trainer's snapshot of the
-    same scene."""
+    """--debug with a forced NaN flag at iteration 2, in the pipelined loop
+    (the default): the flag is read when step 2 is finalized, during
+    iteration 3, and the snapshot is named by the trainer's iteration then,
+    as the JAX trainer names it: debug/nan_snapshot_3.npz, with the keys,
+    shapes and dtypes of the JAX trainer's snapshot of the same scene."""
     step = trainer_mod.train_step
 
     def nan_at_2(model, opt_state, cam, gt, timestamp, bg, it, statics, **kw):
@@ -268,11 +270,12 @@ def test_debug_snapshot_has_jax_keys(scene_root, tmp_path, monkeypatch):
         return out._replace(nan_flag=torch.tensor(it == 2))
 
     monkeypatch.setattr(trainer_mod, "train_step", nan_at_2)
+    monkeypatch.delenv("EX4DGS_PIPELINE", raising=False)
     out = str(tmp_path / "out")
     assert train_cli.main(["--source_path", scene_root, "--model_path", out, "--iterations",
                            "3", "--debug", *SCENE_ARGS]) == 0
-    assert os.listdir(os.path.join(out, "debug")) == ["nan_snapshot_2.npz"]
-    got = np.load(os.path.join(out, "debug", "nan_snapshot_2.npz"))
+    assert os.listdir(os.path.join(out, "debug")) == ["nan_snapshot_3.npz"]
+    got = np.load(os.path.join(out, "debug", "nan_snapshot_3.npz"))
     with open(os.path.join(out, "train_report.json")) as f:
         assert json.load(f)["event_counts"]["prune_nan"] == 1
 
@@ -281,11 +284,32 @@ def test_debug_snapshot_has_jax_keys(scene_root, tmp_path, monkeypatch):
                    JScene(jcfg, scene_info=jread_n3v_scene(scene_root, jcfg)), capacity=65536,
                    debug_snapshot_dir=str(tmp_path / "jax_debug"))
     jtr.last_cam = jtr.scene.train_cameras[0]
-    jtr.iteration = 2
+    jtr.iteration = 3
     jtr._dump_debug_snapshot()
-    want = np.load(tmp_path / "jax_debug" / "nan_snapshot_2.npz")
+    want = np.load(tmp_path / "jax_debug" / "nan_snapshot_3.npz")
     assert sorted(got.files) == sorted(want.files)
     assert {"iteration", "cam_view", "cam_proj", "cam_timestamp"} <= set(got.files)
     for k in want.files:
         assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype, k
-    assert int(got["iteration"]) == 2
+    assert int(got["iteration"]) == 3
+
+
+def test_debug_snapshot_serial_names_the_step(scene_root, tmp_path, monkeypatch):
+    """The serial loop (EX4DGS_PIPELINE=0) reads the NaN flag in the
+    iteration that raised it: debug/nan_snapshot_2.npz, one prune_nan."""
+    step = trainer_mod.train_step
+
+    def nan_at_2(model, opt_state, cam, gt, timestamp, bg, it, statics, **kw):
+        out = step(model, opt_state, cam, gt, timestamp, bg, it, statics, **kw)
+        return out._replace(nan_flag=torch.tensor(it == 2))
+
+    monkeypatch.setattr(trainer_mod, "train_step", nan_at_2)
+    monkeypatch.setenv("EX4DGS_PIPELINE", "0")
+    out = str(tmp_path / "out")
+    assert train_cli.main(["--source_path", scene_root, "--model_path", out, "--iterations",
+                           "3", "--debug", *SCENE_ARGS]) == 0
+    assert os.listdir(os.path.join(out, "debug")) == ["nan_snapshot_2.npz"]
+    assert int(np.load(os.path.join(out, "debug", "nan_snapshot_2.npz"))["iteration"]) == 2
+    with open(os.path.join(out, "train_report.json")) as f:
+        report = json.load(f)
+    assert report["event_counts"]["prune_nan"] == 1 and report["pipeline"] is False
