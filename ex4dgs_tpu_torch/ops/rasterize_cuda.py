@@ -47,6 +47,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..runtime.profiling import span
 from . import compositing as comp
 from .binning import Binning
 from .projection import Projected
@@ -90,16 +91,17 @@ class PackSorted(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        order, cum, counts, slot = ctx.saved_tensors
-        capacity = order.shape[0]
-        slot_s = torch.empty(capacity, dtype=torch.long, device=ct.device)
-        slot_s[slot.long()] = torch.arange(capacity, device=ct.device)
-        pref = torch.zeros((ct.shape[0], capacity + 1), dtype=torch.float64,
-                           device=ct.device)
-        torch.cumsum(ct.index_select(1, slot_s).double(), dim=1, out=pref[:, 1:])
-        hi = cum.long().clamp(0, capacity)
-        lo = (cum - counts).long().clamp(0, capacity)
-        d_rows = (pref.index_select(1, hi) - pref.index_select(1, lo)).float()
+        with span("ex4dgs.backward.pack"):
+            order, cum, counts, slot = ctx.saved_tensors
+            capacity = order.shape[0]
+            slot_s = torch.empty(capacity, dtype=torch.long, device=ct.device)
+            slot_s[slot.long()] = torch.arange(capacity, device=ct.device)
+            pref = torch.zeros((ct.shape[0], capacity + 1), dtype=torch.float64,
+                               device=ct.device)
+            torch.cumsum(ct.index_select(1, slot_s).double(), dim=1, out=pref[:, 1:])
+            hi = cum.long().clamp(0, capacity)
+            lo = (cum - counts).long().clamp(0, capacity)
+            d_rows = (pref.index_select(1, hi) - pref.index_select(1, lo)).float()
         return d_rows, None, None, None, None
 
 
@@ -484,17 +486,18 @@ class CompositeTiles(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_color, g_accum, g_tfinal, _g_bestidx):
-        data, bg, accum, tfinal, starts, stops, offsets = ctx.saved_tensors
-        grid_x, tile_x, tile_y, tile0 = ctx.grid
-        gacc = g_accum.clone()
-        gacc[..., 0:3] += g_color
-        gend = (g_color * bg).sum(-1, keepdim=True) + g_tfinal
-        acdot = (accum[..., 0:3] * gacc[..., 0:3]).sum(-1, keepdim=True)
-        dgrad = composite_tiles_bwd(data, starts, stops, gacc.contiguous(),
-                                    acdot.contiguous(), gend.contiguous(), tfinal,
-                                    grid_x=grid_x, tile_x=tile_x, tile_y=tile_y,
-                                    offsets=offsets, tile0=tile0)
-        g_bg = (g_color * tfinal).sum((0, 1)) if ctx.needs_input_grad[1] else None
+        with span("ex4dgs.backward.composite"):
+            data, bg, accum, tfinal, starts, stops, offsets = ctx.saved_tensors
+            grid_x, tile_x, tile_y, tile0 = ctx.grid
+            gacc = g_accum.clone()
+            gacc[..., 0:3] += g_color
+            gend = (g_color * bg).sum(-1, keepdim=True) + g_tfinal
+            acdot = (accum[..., 0:3] * gacc[..., 0:3]).sum(-1, keepdim=True)
+            dgrad = composite_tiles_bwd(data, starts, stops, gacc.contiguous(),
+                                        acdot.contiguous(), gend.contiguous(), tfinal,
+                                        grid_x=grid_x, tile_x=tile_x, tile_y=tile_y,
+                                        offsets=offsets, tile0=tile0)
+            g_bg = (g_color * tfinal).sum((0, 1)) if ctx.needs_input_grad[1] else None
         return dgrad, g_bg, None, None, None, None, None, None, None, None, None
 
 

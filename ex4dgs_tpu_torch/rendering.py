@@ -26,6 +26,7 @@ from .ops.projection import CameraArrays, Projected, project_gaussians, tile_gri
 from .ops import compositing as comp
 from .ops.rasterize_cuda import composite_blocks, rasterize_tiled_cuda
 from .parallel import collectives
+from .runtime.profiling import span
 
 
 @dataclasses.dataclass
@@ -108,10 +109,11 @@ def render_points(pts: PointData, cam: RenderCamera, cfg: ModelConfig, *, bg,
     if flow_dirs is None:
         flow_dirs = torch.zeros((P, 3), dtype=torch.float32, device=dev)
     bg = upload(bg, dev, torch.float32)
-    proj, colors = preprocess_points(pts, cam, cfg, near=near, far=far,
-                                     scaling_modifier=scaling_modifier,
-                                     mean2d_offset=mean2d_offset,
-                                     override_color=override_color, kernel_cfg=kcfg)
+    with span("ex4dgs.preprocess"):
+        proj, colors = preprocess_points(pts, cam, cfg, near=near, far=far,
+                                         scaling_modifier=scaling_modifier,
+                                         mean2d_offset=mean2d_offset,
+                                         override_color=override_color, kernel_cfg=kcfg)
     return composite_projected(proj, colors, flow_dirs, cam, bg=bg, far=far,
                                capacity=capacity, static_num=pts.static_num,
                                subpixel_offset=subpixel_offset, track_idx=track_idx,
@@ -159,14 +161,16 @@ def composite_projected(proj: Projected, colors, flow_dirs, cam: RenderCamera, *
             raise ValueError(f"subpixel_offset: {subpixel_offset.dtype} "
                              f"{tuple(subpixel_offset.shape)}, expected float32 {shape}")
     grid_x, grid_y = tile_grid(cam.width, cam.height, kcfg.tile_x, kcfg.tile_y)
-    binning = binning_ops.bin_gaussians(proj, grid_x, grid_y, capacity,
-                                        exact_depth_sort=kcfg.exact_sort,
-                                        tight_cull=kcfg.tight_cull, tile_x=kcfg.tile_x,
-                                        tile_y=kcfg.tile_y)
-    out = rasterize_tiled_cuda(proj, colors, flow_dirs, binning, width=cam.width,
-                               height=cam.height, bg=bg, max_depth=far, tile_x=kcfg.tile_x,
-                               tile_y=kcfg.tile_y, track_idx=track_idx,
-                               subpixel_offset=subpixel_offset)
+    with span("ex4dgs.binning"):
+        binning = binning_ops.bin_gaussians(proj, grid_x, grid_y, capacity,
+                                            exact_depth_sort=kcfg.exact_sort,
+                                            tight_cull=kcfg.tight_cull, tile_x=kcfg.tile_x,
+                                            tile_y=kcfg.tile_y)
+    with span("ex4dgs.composite"):
+        out = rasterize_tiled_cuda(proj, colors, flow_dirs, binning, width=cam.width,
+                                   height=cam.height, bg=bg, max_depth=far,
+                                   tile_x=kcfg.tile_x, tile_y=kcfg.tile_y,
+                                   track_idx=track_idx, subpixel_offset=subpixel_offset)
     return RenderResult(
         render=out.color,
         depth=out.depth,
@@ -278,10 +282,12 @@ def render(cam: RenderCamera, model: GaussianModel, cfg: ModelConfig, *, t, bg,
     otherwise; the model and camera must already be there). With t a host
     number and bg on the device, the render reads nothing back to the
     host."""
-    dev = resolve_device(device)
-    _on(dev, "the model", model.params["xyz"])
-    pts = point_data_at_t(model, cfg, t, mode=mode)
-    return render_points(pts, cam, cfg, bg=bg, device=dev, **kwargs)
+    with span("ex4dgs.render"):
+        dev = resolve_device(device)
+        _on(dev, "the model", model.params["xyz"])
+        with span("ex4dgs.temporal"):
+            pts = point_data_at_t(model, cfg, t, mode=mode)
+        return render_points(pts, cam, cfg, bg=bg, device=dev, **kwargs)
 
 
 def default_capacity(num_points: int, width: int, height: int,

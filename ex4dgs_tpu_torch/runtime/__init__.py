@@ -1,3 +1,3 @@
-"""Host runtime: profiling and step timing."""
+"""Host runtime: program spans, profiling and traces."""
 
-from .profiling import StepTimer, trace  # noqa: F401
+from .profiling import trace  # noqa: F401

@@ -33,6 +33,7 @@ from ..models.optimizer import RAdamState, group_lrs, mask_grads, radam_update, 
 from ..models.state import GaussianModel
 from ..ops.losses import l1_loss, psnr, ssim
 from ..rendering import RenderCamera, RenderResult, render
+from ..runtime.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,8 +111,9 @@ def _loss_and_aux(params, mean2d_offset, flow_dirs, model: GaussianModel, cam: R
     res = render(cam, model.replace(params=params), statics.cfg, t=t, bg=bg,
                  capacity=statics.capacity, mean2d_offset=mean2d_offset, flow_dirs=flow_dirs,
                  track_idx=False, kernel_cfg=statics.kernel, device=device)
-    loss, ll1 = _image_loss(res, gt, statics.opt)
-    loss = loss + _regularizers(params, model, statics.opt, statics.cfg, iteration)
+    with span("ex4dgs.loss"):
+        loss, ll1 = _image_loss(res, gt, statics.opt)
+        loss = loss + _regularizers(params, model, statics.opt, statics.cfg, iteration)
     return loss, (res, ll1)
 
 
@@ -236,26 +238,29 @@ def train_step(model: GaussianModel, opt_state: RAdamState, cam: RenderCamera, g
     t is a host number (a 0-d tensor is taken too); bg [3] should be on
     the device already. Nothing is read back to the host: the step only
     queues work on the device."""
-    dev = resolve_device(device)
-    iteration = int(iteration)
-    n_total = model.static_capacity + model.dynamic_capacity
-    params = {k: v.detach().requires_grad_(True) for k, v in model.params.items()}
-    mean2d_offset = torch.zeros((n_total, 3), device=dev, requires_grad=True)
-    flow_dirs = torch.zeros((n_total, 3), device=dev, requires_grad=True)
-    t_dev = scalar_on(t, dev)
-    bg = upload(bg, dev, torch.float32)
+    with span("ex4dgs.train_step"):
+        dev = resolve_device(device)
+        iteration = int(iteration)
+        n_total = model.static_capacity + model.dynamic_capacity
+        params = {k: v.detach().requires_grad_(True) for k, v in model.params.items()}
+        mean2d_offset = torch.zeros((n_total, 3), device=dev, requires_grad=True)
+        flow_dirs = torch.zeros((n_total, 3), device=dev, requires_grad=True)
+        t_dev = scalar_on(t, dev)
+        bg = upload(bg, dev, torch.float32)
 
-    loss, (res, ll1) = _loss_and_aux(params, mean2d_offset, flow_dirs, model, cam, gt, t, bg,
-                                     iteration, statics, device=dev)
-    img = res.render.detach()
-    pgrads, m2d_grad, flow_grad = _gradients(loss, params, mean2d_offset, flow_dirs)
-    with torch.no_grad():
-        new_model, new_state = _apply_update(model, opt_state, pgrads, iteration, statics)
-        new_model = _update_stat_accumulators(new_model, res, m2d_grad, flow_grad, t_dev,
-                                              iteration, statics.opt)
-        ok = res.binning_total <= statics.capacity
-        out_model, out_state, nan_flag = gate_update(ok, new_model, model, new_state,
-                                                     opt_state)
-    return StepOutputs(model=out_model, opt_state=out_state, loss=loss.detach(),
-                       ll1=ll1.detach(), psnr=psnr(img, gt), visibility=res.visibility_filter,
-                       binning_total=res.binning_total, nan_flag=nan_flag)
+        loss, (res, ll1) = _loss_and_aux(params, mean2d_offset, flow_dirs, model, cam, gt, t,
+                                         bg, iteration, statics, device=dev)
+        img = res.render.detach()
+        with span("ex4dgs.backward"):
+            pgrads, m2d_grad, flow_grad = _gradients(loss, params, mean2d_offset, flow_dirs)
+        with torch.no_grad(), span("ex4dgs.update"):
+            new_model, new_state = _apply_update(model, opt_state, pgrads, iteration, statics)
+            new_model = _update_stat_accumulators(new_model, res, m2d_grad, flow_grad, t_dev,
+                                                  iteration, statics.opt)
+            ok = res.binning_total <= statics.capacity
+            out_model, out_state, nan_flag = gate_update(ok, new_model, model, new_state,
+                                                         opt_state)
+        return StepOutputs(model=out_model, opt_state=out_state, loss=loss.detach(),
+                           ll1=ll1.detach(), psnr=psnr(img, gt),
+                           visibility=res.visibility_filter,
+                           binning_total=res.binning_total, nan_flag=nan_flag)
