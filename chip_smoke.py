@@ -49,18 +49,21 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    value and with the kernel's transposed reduction.
 6. training path: train.step.train_step at full width (OptimizationConfig
    defaults, spatial_lr_scale 3.0, gt zeros, t = i % 5, iteration 100, the
-   train step of bench.py), 31 steps carrying model and optimizer state.
-   Every step must launch each kernel exactly once (counters reset before
-   each step), give a finite loss and finite params, not overflow and leave
-   nan_flag false; the loss after the last step (t = 0) must be below the
-   first's (t = 0).
-7. determinism: two train_steps from the same state give bit-equal params,
-   moments and stats.
+   train step of bench.py), 31 steps carrying copies of the model and
+   optimizer state (train_step updates them in place; its CUDA graph is
+   captured on the second step and replayed after). Every step must launch
+   each kernel exactly once (counters reset before each step; a replay
+   counts the launches its capture recorded), give a finite loss and finite
+   params, not overflow and leave nan_flag false; the loss after the last
+   step (t = 0) must be below the first's (t = 0).
+7. determinism: two train_steps from copies of one state give bit-equal
+   params, moments and stats.
 8. timing: train ms/iteration by bench.py's recipe through the bench's own
    functions (`ex4dgs_tpu_torch.bench.measure` of `train_step_tick`: 20
-   iterations from one state, best of 3 windows, each ending in
-   torch.cuda.synchronize), and a torch.profiler breakdown of one step.
-   Then the step path's host reads: one train_step, one sharded step at
+   iterations carrying a copy of the bench state, best of 3 windows, each
+   ending in torch.cuda.synchronize), and a torch.profiler breakdown of one
+   step. Then the step path's host reads: train_step's eager call, capture
+   and replay, one sharded step at
    mesh (1, 1) and one render at t = 2.5 on the bench state, and one
    trainer iteration's dispatch on a tiny on-disk scene, each under
    torch.cuda.set_sync_debug_mode("error") after a warm-up call; none may
@@ -339,12 +342,13 @@ def report_profile(what: str, fn, card: str, wall_ms: float | None = None) -> No
 
 
 def sync_check(dev, scene, gt, statics, card: str) -> None:
-    """Phase 8's check that the step path makes no host read: one
-    train_step, one sharded step at mesh (1, 1) and one render at t = 2.5
-    (dynamic points in view) on the bench state, and one trainer
-    iteration's dispatch on a tiny on-disk scene, each after a warm-up call,
-    under torch.cuda.set_sync_debug_mode("error") (runtime.profiling.
-    host_syncs). Fails if any of them waits for the card."""
+    """Phase 8's check that the step path makes no host read: train_step's
+    eager call, its graph's capture and a replay, one sharded step at mesh
+    (1, 1) and one render at t = 2.5 (dynamic points in view) on the bench
+    state, and one trainer iteration's dispatch on a tiny on-disk scene,
+    each after a warm-up call, under torch.cuda.set_sync_debug_mode("error")
+    (runtime.profiling.host_syncs). Fails if any of them waits for the
+    card."""
     from ex4dgs_tpu_torch import upload
     from ex4dgs_tpu_torch.bench_frame import write_n3v_scene
     from ex4dgs_tpu_torch.data.readers import read_n3v_scene
@@ -354,22 +358,37 @@ def sync_check(dev, scene, gt, statics, card: str) -> None:
     from ex4dgs_tpu_torch.parallel import make_mesh
     from ex4dgs_tpu_torch.parallel.step_dp import make_sharded_train_step
     from ex4dgs_tpu_torch.rendering import render
+    from ex4dgs_tpu_torch import kernels
     from ex4dgs_tpu_torch.runtime.profiling import host_syncs
-    from ex4dgs_tpu_torch.train.step import train_step
+    from ex4dgs_tpu_torch.train.step import clone_state, train_step
     from ex4dgs_tpu_torch.train.trainer import Trainer
 
     model, cfg, cam, _, capacity = scene
     state = init_state(model.params, device=dev)
     bg = torch.zeros(3, device=dev)
     sharded = make_sharded_train_step(statics, make_mesh(device=dev), device=dev)
+    found = {}
+    # train_step's three ways to run, on a copy of the bench state (the step
+    # updates it in place): its key's eager first call, the capture of its
+    # CUDA graph with the first replay, and a replay; after a warm-up call
+    # on another copy, kept alive so that the checked copy lies elsewhere
+    # (another key)
+    warm = clone_state(model, state)
+    train_step(*warm, cam, gt, 2.5, bg, 100, statics, device=dev)
+    m, st = clone_state(model, state)
+    before = kernels.graph_call_counts(dev)
+    for how in ("eager", "capture", "replay"):
+        found[f"train_step ({how})"] = host_syncs(
+            lambda: train_step(m, st, cam, gt, 2.5, bg, 100, statics, device=dev))
+    after = kernels.graph_call_counts(dev)
+    ran = {k: after[k] - before[k] for k in after}
+    if ran != {"eager": 1, "captures": 1, "replays": 2}:
+        fail(f"three train_steps of one key ran {ran}: expected eager, capture, replay")
     calls = {
-        "train_step": lambda: train_step(model, state, cam, gt, 2.5, bg, 100, statics,
-                                         device=dev),
         "sharded step (1, 1)": lambda: sharded(model, state, cam, gt, 2.5, bg, 100),
         "render t=2.5": lambda: render(cam, model, cfg, t=2.5, bg=bg, capacity=capacity,
                                        device=dev),
     }
-    found = {}
     for name, fn in calls.items():
         fn()
         found[name] = host_syncs(fn)
@@ -389,7 +408,7 @@ def sync_check(dev, scene, gt, statics, card: str) -> None:
             lambda: tr._dispatch(4, c, c, g, upload(bg_np, dev), [c]))
         tr.close()
     log("# no host read (torch.cuda.set_sync_debug_mode('error'), after one warm-up call "
-        "each): " + "; ".join(f"{k} {'none' if not v else v}" for k, v in found.items())
+        "each; train_step's eager call, capture and replay each): " + "; ".join(f"{k} {'none' if not v else v}" for k, v in found.items())
         + f"; {card}")
     if any(found.values()):
         fail("a call on the step path waits for the card: "
@@ -981,7 +1000,8 @@ def trainer_report_lines(what: str, report: dict, card: str) -> None:
         f"{statistics.median(iter_ms):.3f}, slowest {max(iter_ms):.1f}; train_step calls "
         f"{report['steps']} ({report['overflow_retries']} overflow retries, capacity now "
         f"{report['capacity']}), test renders {report['test_renders']}; launches "
-        f"{report['kernel_launches']}; {card}")
+        f"{report['kernel_launches']}; the step's CUDA graph {report['graph_calls']}, replay "
+        f"share {report['graph_replay_share']:.3f}; {card}")
     for kind, times in sorted(report["event_ms"].items()):
         log(f"#   event {kind}: x{len(times)}, numpy ms " + ", ".join(f"{t:.1f}" for t in times))
     log("#   pull ms " + ", ".join(f"{t:.1f}" for t in report["pull_ms"])
@@ -1901,7 +1921,7 @@ def tight_cull_phase(dev, card: str) -> dict:
     from ex4dgs_tpu_torch.ops.rasterize_cuda import pack_sorted, tile_offsets
     from ex4dgs_tpu_torch.ops.rasterize_tiled import tile_pixels
     from ex4dgs_tpu_torch.rendering import preprocess_points, render
-    from ex4dgs_tpu_torch.train.step import StepStatics, train_step
+    from ex4dgs_tpu_torch.train.step import StepStatics, clone_state, train_step
 
     scene = bench_scene(dev)
     model, cfg, cam, _, capacity = scene
@@ -1936,8 +1956,8 @@ def tight_cull_phase(dev, card: str) -> dict:
     for tight in (False, True):
         st = StepStatics(cfg=cfg, opt=OptimizationConfig(), spatial_lr_scale=3.0,
                          capacity=capacity, kernel=kc[tight])
-        steps[tight] = train_step(model, init_state(model.params, device=dev), cam, gt, 1.0, bg,
-                                  100, st, device=dev)
+        steps[tight] = train_step(*clone_state(model, init_state(model.params, device=dev)),
+                                  cam, gt, 1.0, bg, 100, st, device=dev)
     a, b = steps[False], steps[True]
     same_step = (torch.equal(a.loss, b.loss) and all(
         torch.equal(a.model.params[k], b.model.params[k])
@@ -2241,7 +2261,7 @@ def nccl_one_phase(dev, scene, train_ms: float, card: str) -> dict:
     from ex4dgs_tpu_torch.parallel import make_mesh
     from ex4dgs_tpu_torch.parallel.step_dp import make_sharded_train_step
     from ex4dgs_tpu_torch.runtime.distributed import initialize
-    from ex4dgs_tpu_torch.train.step import StepStatics, train_step
+    from ex4dgs_tpu_torch.train.step import StepStatics, clone_state, train_step
 
     model, cfg, cam, _total, capacity = scene
     info = initialize(f"localhost:{free_port()}", 1, 0, device=dev, timeout=120)
@@ -2253,7 +2273,7 @@ def nccl_one_phase(dev, scene, train_ms: float, card: str) -> dict:
         bg = torch.zeros(3, device=dev)
         state = init_state(model.params, device=dev)
         step = make_sharded_train_step(statics, mesh, device=dev)
-        ref = train_step(model, state, cam, gt, 1.0, bg, 100, statics, device=dev)
+        ref = train_step(*clone_state(model, state), cam, gt, 1.0, bg, 100, statics, device=dev)
         step(model, state, cam, gt, 1.0, bg, 100)  # warm-up
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -2377,14 +2397,14 @@ def gloo_two_phase(dev, scene, scene_fn, caps: dict, train_ms: float, card: str,
     from ex4dgs_tpu_torch.models.config import OptimizationConfig
     from ex4dgs_tpu_torch.models.density import pull
     from ex4dgs_tpu_torch.models.optimizer import init_state
-    from ex4dgs_tpu_torch.train.step import StepStatics, train_step
+    from ex4dgs_tpu_torch.train.step import StepStatics, clone_state, train_step
 
     model, cfg, cam, _total, capacity = scene
     statics = StepStatics(cfg=cfg, opt=OptimizationConfig(), spatial_lr_scale=3.0,
                           capacity=capacity)
     gt = torch.zeros((cam.height, cam.width, 3), device=dev)
-    ref_out = train_step(model, init_state(model.params, device=dev), cam, gt, 1.0,
-                         torch.zeros(3, device=dev), 100, statics, device=dev)
+    ref_out = train_step(*clone_state(model, init_state(model.params, device=dev)), cam, gt,
+                         1.0, torch.zeros(3, device=dev), 100, statics, device=dev)
     ref = pull(ref_out.model, ref_out.opt_state)
     ref_loss = ref_out.loss.item()
     del ref_out
@@ -2743,7 +2763,7 @@ def main() -> int:
                                                      composite_tiles_plain)
     from ex4dgs_tpu_torch.rendering import render
     from ex4dgs_tpu_torch.synthetic import make_scene, ring_cameras
-    from ex4dgs_tpu_torch.train.step import StepStatics, train_step
+    from ex4dgs_tpu_torch.train.step import StepStatics, clone_state, train_step
 
     dev = torch.device("cuda")
     card = card_line()
@@ -2936,11 +2956,13 @@ def main() -> int:
     def step(m, st, t):
         return train_step(m, st, cam, gt, t, bg, 100, statics, device=dev)
 
-    step(model, state, 1.0)  # warm-up: allocator, caches
+    # train_step updates the state it is given in place: the phase trains
+    # copies of the bench model and state, which later phases read
+    step(*clone_state(model, state), 1.0)  # warm-up: allocator, caches
     torch.cuda.synchronize()
     train_launches = {name: 0 for name in kernels.launches}
     losses = []
-    m, st = model, state
+    m, st = clone_state(model, state)
     for i in range(TRAIN_STEPS):
         kernels.reset_launches()
         out = step(m, st, float(i % 5))
@@ -2967,8 +2989,8 @@ def main() -> int:
 
     phase_done(6)
     # -- 7. determinism ------------------------------------------------------
-    a = step(m, st, 1.0)
-    b = step(m, st, 1.0)
+    a = step(*clone_state(m, st), 1.0)
+    b = step(*clone_state(m, st), 1.0)
     same = all(torch.equal(a.model.params[k], b.model.params[k])
                and torch.equal(a.opt_state.mu[k], b.opt_state.mu[k])
                and torch.equal(a.opt_state.nu[k], b.opt_state.nu[k]) for k in m.params)

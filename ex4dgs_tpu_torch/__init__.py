@@ -63,15 +63,17 @@ def scalar_on(x, device, dtype=torch.float32) -> torch.Tensor:
     return torch.full((), x, dtype=dtype, device=device)
 
 
-def upload(x, device, dtype=None) -> torch.Tensor:
-    """x (a number, a numpy array or a tensor) as a tensor on `device`. A
-    host array bound for a CUDA device is staged in pinned memory and
-    copied without blocking: a copy from pageable memory makes the host wait
-    until the device's stream has drained."""
+def upload(x, device, dtype=None, out=None) -> torch.Tensor:
+    """x (a number, a numpy array or a tensor) as a tensor on `device`, or
+    copied into `out` (a tensor there) when given. A host array bound for a
+    CUDA device is staged in pinned memory and copied without blocking: a
+    copy from pageable memory makes the host wait until the device's stream
+    has drained."""
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
     if dtype is not None:
         t = t.to(dtype)
     device = torch.device(device)
     if t.device.type == "cpu" and device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+        t = t.pin_memory()
+        return t.to(device, non_blocking=True) if out is None else out.copy_(t, non_blocking=True)
+    return t.to(device) if out is None else out.copy_(t)

@@ -10,7 +10,7 @@ t = 1), the four things bench.py times:
   0.2 (1 - SSIM) of the render against a zero ground truth, with respect
   to every parameter (`fwd_bwd_loss`);
 - the full `train_step` (render, loss, backward, RAdam, stat accumulators)
-  at iteration 100 from one state (BENCH_TRAIN_STEP=0 leaves it out);
+  at iteration 100 (`train_step_tick`; BENCH_TRAIN_STEP=0 leaves it out);
 - `render` with and without the dominant-index bookkeeping (`track_idx`).
 
 Each at t = i % 5 by bench.py's recipe (`measure`), and every render with
@@ -26,8 +26,8 @@ over BASELINE.md's 40 Mpix/s estimate), then the port's own: each timing
 in ms per call; kernels A and B alone on the bench frame (CUDA events,
 `bench_frame.cuda_ms`, as chip_smoke.py phases 3 and 5 time them); the
 train step's device ms per call (torch.profiler over three steps) and the
-device busy share, that time over the step's ms timed above without the
-profiler; the compositing kernels' launches per call of each timing and
+device busy share, that time over those steps' wall time under the
+profiler (`runtime.profiling.device_busy_share`); the compositing kernels' launches per call of each timing and
 over the whole run; the card's name and power limit; the torch and CUDA
 versions. Lines before it start with "#". The device figures are null on
 the CPU.
@@ -54,7 +54,7 @@ from .models.config import OptimizationConfig
 from .models.optimizer import init_state
 from .ops.losses import l1_loss, ssim
 from .rendering import render
-from .train.step import StepStatics, train_step
+from .train.step import StepStatics, clone_state, train_step
 
 BASELINE_MPIX_S = 40.0  # BASELINE.md's estimate of the reference's fwd+bwd rate
 KERNELS = ("composite_fwd", "composite_bwd")
@@ -139,15 +139,18 @@ def fwd_bwd_tick(scene: BenchScene, gt: torch.Tensor, kernel_cfg: KernelConfig |
 def train_step_tick(scene: BenchScene, gt: torch.Tensor, kernel_cfg: KernelConfig | None,
                     device):
     """tick(i): bench.py:172-194's step, `train_step` at t = i % 5 and
-    iteration 100 from one initial state (spatial_lr_scale 3, the default
-    OptimizationConfig, the scene's capacity, black background)."""
+    iteration 100 (spatial_lr_scale 3, the default OptimizationConfig, the
+    scene's capacity, black background) on a copy of the scene's model and
+    a fresh optimizer state: from that one state on the CPU; on CUDA, where
+    train_step updates its state in place, carried from tick to tick.
+    scene.model is left as it is."""
     dev = resolve_device(device)
     statics = StepStatics(cfg=scene.cfg, opt=OptimizationConfig(), spatial_lr_scale=3.0,
                           capacity=scene.capacity, kernel=kernel_cfg)
-    state = init_state(scene.model.params, device=dev)
+    model, state = clone_state(scene.model, init_state(scene.model.params, device=dev))
     bg = torch.zeros(3, device=dev)
-    return lambda i: train_step(scene.model, state, scene.cam, gt, float(i % 5), bg, 100,
-                                statics, device=dev)
+    return lambda i: train_step(model, state, scene.cam, gt, float(i % 5), bg, 100, statics,
+                                device=dev)
 
 
 def render_tick(scene: BenchScene, track_idx: bool, kernel_cfg: KernelConfig | None, device):
@@ -240,8 +243,7 @@ def run(device=None) -> dict:
         if "train_step" in ticks:
             from .runtime.profiling import device_busy_share
 
-            device_ms, busy = device_busy_share(lambda: ticks["train_step"](1),
-                                                ms["train_step"])
+            device_ms, busy = device_busy_share(lambda: ticks["train_step"](1))
         card_name = card()
     return {
         "metric": "rasterizer_fwd_bwd_throughput",

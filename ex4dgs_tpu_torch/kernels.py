@@ -12,10 +12,16 @@ tensor.
 
 `launches` counts the launches of each entry point; a wrapper adds one where
 it launches its kernel and nowhere else, so a caller can show which kernels
-a run went through (reset it with `reset_launches`).
+a run went through (reset it with `reset_launches`). A launch that a CUDA
+graph captures runs only when the graph is replayed, so it is counted then:
+the capture's launches go to the tally of `capturing()`, and `replayed`
+adds that tally once per replay. `graph_calls` counts, per device, how
+`train_step` ran: eagerly, by a capture, and by a replay of its graph (a
+capture's call replays the graph too); `reset_graph_calls` clears it.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -41,6 +47,8 @@ SOURCES = {
     "probe_outspec": ("outspec_a", "outspec_b", "outspec_c", "outspec_d", "outspec_e"),
 }
 launches: dict[str, int] = {fn: 0 for fns in SOURCES.values() for fn in fns}
+_tallies: list[dict[str, int]] = []  # launches of the graphs being captured
+graph_calls: dict[str, dict[str, int]] = {}  # device -> {"eager", "captures", "replays"}
 build_logs: dict[str, str] = {}  # source name -> nvcc's output (ptxas usage)
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -91,6 +99,58 @@ def declared_signature(source: str, entry: str) -> list[tuple[str, object]]:
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def count_launch(entry: str, captured: bool) -> None:
+    """One launch of `entry`: into `launches`, or, when a CUDA graph captured
+    it (it did not run), into the tally of the capture under way."""
+    if captured and _tallies:
+        _tallies[-1][entry] += 1
+    else:
+        launches[entry] += 1
+
+
+@contextlib.contextmanager
+def capturing():
+    """Around the capture of a CUDA graph: yields the tally (entry point ->
+    launches) that the captured launches go to, for `replayed`."""
+    tally = dict.fromkeys(launches, 0)
+    _tallies.append(tally)
+    try:
+        yield tally
+    finally:
+        _tallies.remove(tally)
+
+
+def replayed(tally: dict[str, int]) -> None:
+    """Count the launches of one replay of a graph whose capture recorded
+    `tally`."""
+    for name, n in tally.items():
+        launches[name] += n
+
+
+def _device_name(device) -> str:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+def graph_call_counts(device) -> dict[str, int]:
+    """A copy of `graph_calls` of `device` (zeros where none ran)."""
+    return dict(graph_calls.get(_device_name(device), {"eager": 0, "captures": 0, "replays": 0}))
+
+
+def count_graph_call(device, kind: str) -> None:
+    """One train_step on `device` that ran `kind`: "eager", "captures" or
+    "replays"."""
+    calls = graph_calls.setdefault(_device_name(device),
+                                   {"eager": 0, "captures": 0, "replays": 0})
+    calls[kind] += 1
+
+
+def reset_graph_calls() -> None:
+    graph_calls.clear()
 
 
 def _nvcc() -> str:
@@ -158,15 +218,17 @@ def load_all() -> None:
 
 def _launch(source: str, entry: str, dev: torch.device, *args) -> None:
     """Call C function `entry` of csrc/<source>.cu with `args` and the
-    current stream of `dev`; raise if the launch failed, else count it."""
+    current stream of `dev`; raise if the launch failed, else count it
+    (`count_launch`)."""
     lib = load(source)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        captured = torch.cuda.is_current_stream_capturing()
         err = getattr(lib, entry)(*args, stream)
     if err != 0:
         msg = getattr(lib, f"{source}_error_string")(err).decode()
         raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({msg})")
-    launches[entry] += 1
+    count_launch(entry, captured)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device):

@@ -94,7 +94,9 @@ def group_lrs(opt: OptimizationConfig, spatial_lr_scale: float, iteration) -> di
 
 def radam_update(params: dict, grads: dict, state: RAdamState, lrs: dict):
     """One RAdam step; returns (new params, new state). The rectified branch
-    (from the 6th step on) depends only on the step count."""
+    (from the 6th step on) depends only on the step count. lrs: name -> the
+    group's rate (`group_lrs`' values, or their float32 bits in 0-d tensors
+    on the params' device)."""
     t = (state.step + 1).to(torch.float32)
     beta2_t = torch.pow(torch.full((), BETA2, dtype=torch.float32, device=t.device), t)
     bias1 = 1.0 - torch.pow(torch.full((), BETA1, dtype=torch.float32, device=t.device), t)
@@ -114,7 +116,9 @@ def radam_update(params: dict, grads: dict, state: RAdamState, lrs: dict):
         m_hat = mu / bias1
         adaptive = torch.sqrt(bias2) / (torch.sqrt(nu) + EPS)
         update = torch.where(rectified, m_hat * rect * adaptive, m_hat)
-        # a scheduled rate is a 0-d CPU tensor: a scalar to any device
+        # a rate is a host number, a 0-d CPU tensor (a scalar to any device)
+        # or a 0-d tensor on the params' device, whose value a CUDA graph
+        # of the step reads at each replay
         new_params[k] = p - lrs[k] * update
         new_mu[k] = mu
         new_nu[k] = nu

@@ -38,12 +38,14 @@ def _sigmoid(x):
 
 def point_data_at_t(model: GaussianModel, cfg: ModelConfig, t,
                     mode: int = 0) -> PointData:
-    """Assemble all rasterizer inputs for timestamp t (a host number, or a
-    0-d tensor). The keyframes are picked on the host, from t's value; a
-    host number is filled in on the model's device, so the query reads
-    nothing back from it (a tensor on the card is read once)."""
+    """Assemble all rasterizer inputs for timestamp t. A host number picks
+    the keyframes on the host and slices them, and is filled in on the
+    model's device; a 0-d tensor picks and gathers them on its device
+    (`interpolation.gather_keyframes`), and is never read back, so that a
+    CUDA graph replays the query for whatever t it finds there. Either way
+    the query reads nothing back from the device."""
     p = model.params
-    t_host = t.item() if isinstance(t, torch.Tensor) else t
+    t_host = None if isinstance(t, torch.Tensor) else t
     t = scalar_on(t, model.device)
     use_static = mode in (0, 1)
     use_dynamic = mode in (0, 2) and model.dynamic_capacity > 0

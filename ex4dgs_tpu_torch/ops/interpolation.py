@@ -88,26 +88,43 @@ def keyframe_index(t, time_shift: float, interval: float) -> int:
 
 
 def keyframe_coords(t: torch.Tensor, time_shift: float, interval: float, t_host=None):
-    """Scene timestamp t (0-d float32 tensor) -> (keyframe index as a Python
-    int, fractional offset as a 0-d tensor). The index selects which
-    keyframe slices the frame gathers; it is computed on the host from
-    `t_host`, t's value as a host number, read from t when not given."""
+    """Scene timestamp t (0-d float32 tensor) -> (keyframe index k,
+    fractional offset as a 0-d tensor). With `t_host`, t's value as a host
+    number, k is a Python int computed on the host, and the keyframes are
+    sliced; without it k is a 0-d int64 tensor on t's device, computed there
+    with the same float32 operations, and t is never read back."""
     tt = t + time_shift
-    k = keyframe_index(t.item() if t_host is None else t_host, time_shift, interval)
+    if t_host is not None:
+        k = keyframe_index(t_host, time_shift, interval)
+    else:
+        # a tensor divisor: a host number would be multiplied in as its
+        # reciprocal on the GPU, which can land on the wrong side of a
+        # keyframe boundary
+        k = torch.floor(tt / torch.full_like(tt, interval)).long()
     dt = torch.remainder(tt, interval) / interval
     return k, dt
 
 
-def gather_keyframes(y: torch.Tensor, k: int, offsets: tuple[int, ...]):
+def gather_keyframes(y: torch.Tensor, k, offsets: tuple[int, ...]):
     """y[:, k+o] for each o in offsets, with numpy-style negative indices. A
     keyframe outside the K axis reads as NaN, as the JAX package's gather
-    fills it: the dynamic points then fail the frustum test and vanish."""
+    fills it: the dynamic points then fail the frustum test and vanish.
+    k a Python int slices; k a 0-d tensor gathers on the device with one
+    index_select of the consecutive offsets, reading nothing back."""
     K = y.shape[1]
-    return tuple(y[:, k + o] if -K <= k + o < K
-                 else torch.full_like(y[:, 0], float("nan")) for o in offsets)
+    if not isinstance(k, torch.Tensor):
+        return tuple(y[:, k + o] if -K <= k + o < K
+                     else torch.full_like(y[:, 0], float("nan")) for o in offsets)
+    if list(offsets) != list(range(offsets[0], offsets[0] + len(offsets))):
+        raise ValueError(f"a device index gathers consecutive offsets, got {offsets}")
+    idx = k + torch.arange(offsets[0], offsets[0] + len(offsets), device=y.device)
+    inside = (idx >= -K) & (idx < K)
+    cols = y.index_select(1, torch.where(inside, torch.remainder(idx, K), 0))
+    cols = torch.where(inside.view((1, -1) + (1,) * (y.dim() - 2)), cols, float("nan"))
+    return cols.unbind(1)
 
 
-def interp_keyframes(kind: str, y, k: int, dt, y_d=None):
+def interp_keyframes(kind: str, y, k, dt, y_d=None):
     """Positional interpolation over keyframe axis 1 of y [P, K, D].
     kind: 'linear' | 'cube' | 'pchip' | 'cubic_diff' (needs tangents y_d)."""
     if kind == "linear":
@@ -126,7 +143,7 @@ def interp_keyframes(kind: str, y, k: int, dt, y_d=None):
     raise NotImplementedError(f"unknown interp kind: {kind}")
 
 
-def interp_quat_keyframes(kind: str, y, k: int, dt):
+def interp_quat_keyframes(kind: str, y, k, dt):
     """Rotation interpolation between adjacent keyframes: 'lerp' or 'slerp'."""
     y0, y1 = gather_keyframes(y, k, (0, 1))
     if kind == "lerp":

@@ -32,11 +32,12 @@ def psnr(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return 20.0 * torch.log10(1.0 / torch.sqrt(mse))
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def _gaussian_window(window_size: int, sigma: float, dtype: torch.dtype,
                      device: torch.device) -> torch.Tensor:
     """The normalised 1-D window on `device`, uploaded once (without
-    blocking: upload)."""
+    blocking: upload) and never evicted: a CUDA graph of the training step
+    reads it by its address."""
     g = [math.exp(-((x - window_size // 2) ** 2) / (2 * sigma**2)) for x in range(window_size)]
     s = sum(g)
     return upload(torch.tensor([v / s for v in g], dtype=dtype), device)

@@ -34,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from .. import resolve_device, scalar_on, upload
-from ..models.optimizer import RAdamState
+from ..models.optimizer import RAdamState, group_lrs
 from ..models.state import GaussianModel
 from ..models.temporal import point_data_at_t
 from ..ops.losses import psnr
@@ -144,7 +144,8 @@ def make_sharded_train_step(statics: StepStatics, mesh: Mesh, device=None):
                 for k, g in pgrads.items():
                     pgrads[k] = flat[at:at + g.numel()].view_as(g)
                     at += g.numel()
-            new_model, new_state = _apply_update(model, opt_state, pgrads, iteration, statics)
+            lrs = group_lrs(statics.opt, statics.spatial_lr_scale, iteration)
+            new_model, new_state = _apply_update(model, opt_state, pgrads, lrs)
 
             # The stat side channel: the whole per-Gaussian rows (gathered
             # over gauss), then one camera at a time in data order. radii

@@ -282,27 +282,32 @@ def profile_calls(fn, n: int = 3, top: int = 12):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     # Only the device's own events (kernels, copies, fills): an operator's
-    # row repeats the time of the kernels it launched.
+    # row repeats the time of the kernels it launched, and a span's
+    # device-side annotation the time of the kernels it encloses.
     rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(SPAN_PREFIX)]
     if not rows:
         return None
     rows.sort(key=lambda r: -r[1])
     return wall_ms, sum(r[1] for r in rows), sum(r[2] for r in rows), rows[:top]
 
 
-def device_busy_share(fn, wall_ms: float, n: int = 3) -> tuple:
-    """(device ms per call of fn(), its share of `wall_ms`): the device
-    time of every kernel and copy over n calls under torch.profiler
-    (`profile_calls`) over the call's wall time measured without the
-    profiler. The profiler slows the host, so the wall time under it would
-    understate the share. (None, None) when the profiler saw no device
-    time."""
+def device_busy_share(fn, n: int = 3) -> tuple:
+    """(device ms per call of fn(), its share of the call's wall time): the
+    device time of every kernel and copy over n calls under torch.profiler
+    (`profile_calls`) over those calls' wall time, both under the profiler.
+    Kernel tracing stretches the device time of a call that keeps the
+    device busy (a replayed CUDA graph), so a wall time measured without
+    the profiler can fall below it; the profiler's host overhead makes the
+    share understate a host-bound call's. (None, None) when the profiler saw
+    no device time."""
     breakdown = profile_calls(fn, n)
     if breakdown is None:
         return None, None
-    return breakdown[1], breakdown[1] / wall_ms
+    return breakdown[1], breakdown[1] / breakdown[0]
 
 
 def host_syncs(fn) -> list[str]:

@@ -238,6 +238,8 @@ def main(argv=None) -> int:
         "event_log": trainer.event_log,
         "steps": trainer.steps,
         "overflow_retries": trainer.overflow_count,
+        "graph_calls": trainer.graph_calls,
+        "graph_replay_share": trainer.replay_share,
         "test_renders": trainer.test_renders,
         "gui_renders": trainer.gui_renders,
         "capacity": trainer.capacity,

@@ -18,6 +18,20 @@ gate is on the device, as the JAX step's: the update is always computed
 and `torch.where(ok, new, old)` selects it tensor by tensor, so the step
 reads nothing back to the host and the caller may look at binning_total
 whenever it likes.
+
+On CUDA the step runs as one CUDA graph. The first call with a key runs
+eagerly (the warm-up), the second captures the step and replays it, every
+later call stages its inputs into the graph's static buffers and replays
+it. The key is what a capture bakes in: the statics, the branches the
+iteration decides on the host (`iteration_gates`), the camera's size, the
+inputs' shapes and the storage of every tensor of the model and optimizer
+state. The timestamp and the learning rates are staged on the device each
+call (`_stage_scalars`), so the temporal query gathers its keyframes there.
+The model and optimizer state are updated in place (the gated result is
+written back into their tensors), eagerly and in the graph alike, so the
+state is never held twice; the small outputs are fresh tensors each call.
+One graph is kept per device: a new key releases the old graph and its
+memory. On the CPU the step runs eagerly and returns new state.
 """
 from __future__ import annotations
 
@@ -26,7 +40,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import resolve_device, scalar_on, upload
+from .. import kernels, resolve_device, scalar_on, upload
 from ..kernel_config import KernelConfig
 from ..models.config import ModelConfig, OptimizationConfig
 from ..models.optimizer import RAdamState, group_lrs, mask_grads, radam_update, scrub_nan
@@ -58,6 +72,21 @@ class StepOutputs(NamedTuple):
     nan_flag: torch.Tensor  # [] bool: NaN in the new xyz (or motion_xyz)
 
 
+class Gates(NamedTuple):
+    """The branches of the step that its iteration decides on the host."""
+
+    densify: bool  # the densification stats accumulate
+    static_reg: bool  # the displacement regularizer is on
+    dynamic_reg: bool  # the motion and rotation regularizers are on
+
+
+def iteration_gates(opt: OptimizationConfig, iteration: int) -> Gates:
+    return Gates(densify=iteration < opt.densify_until_iter,
+                 static_reg=iteration > opt.progressive_growing_steps + opt.make_dynamic_interval,
+                 dynamic_reg=iteration > (opt.progressive_growing_steps * opt.extract_every
+                                          + opt.make_dynamic_interval))
+
+
 def _safe_norm(x, dim=-1):
     """Euclidean norm whose gradient at the origin is 0, not NaN."""
     sq = torch.sum(x * x, dim=dim)
@@ -72,22 +101,21 @@ def _regularizers(params, model: GaussianModel, opt: OptimizationConfig, cfg: Mo
     and active keyframes; each is gated on the iteration as in the
     reference."""
     dev = model.device
+    gates = iteration_gates(opt, iteration)
     zero = torch.zeros((), device=dev)
     loss = zero
     smask = model.static_mask
     n_s = torch.clamp_min(smask.sum(), 1)
     if opt.static_reg > 0:
-        gate = iteration > opt.progressive_growing_steps + opt.make_dynamic_interval
         disp_term = (torch.log(_safe_norm(params["xyz_disp"]) + 0.001) * smask).sum() / n_s
-        loss = loss + torch.where(torch.full((), gate, device=dev), opt.static_reg * disp_term,
-                                  zero)
+        loss = loss + torch.where(torch.full((), gates.static_reg, device=dev),
+                                  opt.static_reg * disp_term, zero)
 
     if model.dynamic_capacity > 0:
         dmask = model.dynamic_mask
         n_kf = model.keyframe_capacity
         kf_mask = (torch.arange(n_kf, dtype=torch.int32, device=dev) < model.keyframe_num)[None]
-        gate = (torch.full((), iteration > opt.progressive_growing_steps * opt.extract_every
-                           + opt.make_dynamic_interval, device=dev) & dmask.any())
+        gate = torch.full((), gates.dynamic_reg, device=dev) & dmask.any()
         m = kf_mask[:, 1:] * dmask[:, None]  # [Pd, K-1]
         denom = torch.clamp_min(m.sum(), 1)
         if opt.motion_reg > 0:
@@ -138,7 +166,7 @@ def _update_stat_accumulators(model: GaussianModel, res: RenderResult, m2d_grad,
     ps = model.static_capacity
     vis = res.visibility_filter
     radii = res.radii.to(torch.float32)
-    densify_on = iteration < opt.densify_until_iter
+    densify_on = iteration_gates(opt, iteration).densify
     zero = torch.zeros((), device=radii.device)
     one = torch.ones((), device=radii.device)
 
@@ -188,12 +216,11 @@ def _gradients(loss, params: dict, mean2d_offset, flow_dirs):
     return dict(zip(params, grads[:-2])), grads[-2], grads[-1]
 
 
-def _apply_update(model: GaussianModel, opt_state: RAdamState, pgrads: dict, iteration: int,
-                  statics: StepStatics):
+def _apply_update(model: GaussianModel, opt_state: RAdamState, pgrads: dict, lrs: dict):
     """(model, optimizer state) after the RAdam step of the gradients
-    pgrads, masked to the active rows and scrubbed of NaN."""
+    pgrads, masked to the active rows and scrubbed of NaN, at the rates lrs
+    (as radam_update takes them)."""
     pgrads = scrub_nan(mask_grads(pgrads, model))
-    lrs = group_lrs(statics.opt, statics.spatial_lr_scale, iteration)
     new_params, new_state = radam_update(model.params, pgrads, opt_state, lrs)
     return model.replace(params=new_params), new_state
 
@@ -205,27 +232,72 @@ def _nan_flag(model: GaussianModel) -> torch.Tensor:
     return flag
 
 
-def _select(ok: torch.Tensor, new, old):
+def _select(ok: torch.Tensor, new, old, in_place: bool):
     """torch.where(ok, new, old) over every tensor of two models, two
-    optimizer states or two dicts of them, field by field; a tensor the
-    update left as it was comes back as it is."""
+    optimizer states or two dicts of them, field by field, written into old's
+    tensors when in_place; a tensor the update left as it was comes back as
+    it is."""
     if isinstance(new, torch.Tensor):
-        return new if new is old else torch.where(ok, new, old)
+        if new is old:
+            return new
+        return torch.where(ok, new, old, out=old) if in_place else torch.where(ok, new, old)
     if isinstance(new, dict):
-        return {k: _select(ok, new[k], old[k]) for k in new}
+        return {k: _select(ok, new[k], old[k], in_place) for k in new}
     return dataclasses.replace(new, **{f.name: _select(ok, getattr(new, f.name),
-                                                         getattr(old, f.name))
+                                                         getattr(old, f.name), in_place)
                                        for f in dataclasses.fields(new)})
 
 
 def gate_update(ok: torch.Tensor, new_model: GaussianModel, model: GaussianModel,
-                new_state: RAdamState, opt_state: RAdamState):
+                new_state: RAdamState, opt_state: RAdamState, in_place: bool = False):
     """(model, optimizer state, NaN flag) of a step gated on the 0-d bool
     `ok` on the device: the update where ok, the inputs bit for bit where
-    not, and the flag of the selected model."""
-    out_model = _select(ok, new_model, model)
-    out_state = _select(ok, new_state, opt_state)
+    not, and the flag of the selected model. in_place writes the selection
+    into model's and opt_state's own tensors, which come back."""
+    out_model = _select(ok, new_model, model, in_place)
+    out_state = _select(ok, new_state, opt_state, in_place)
     return out_model, out_state, _nan_flag(out_model)
+
+
+def clone_state(model: GaussianModel, opt_state: RAdamState):
+    """Copies of a model and its optimizer state, for a caller that keeps
+    them across a train_step (which updates its state in place on CUDA)."""
+    def copy(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, dict):
+            return {k: copy(v) for k, v in x.items()}
+        return dataclasses.replace(x, **{f.name: copy(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    return copy(model), copy(opt_state)
+
+
+def _step(model: GaussianModel, opt_state: RAdamState, cam: RenderCamera, gt, t, t_dev, bg,
+          iteration: int, lrs: dict, statics: StepStatics, dev, in_place: bool) -> StepOutputs:
+    """The step's work on `dev`, run eagerly or under a graph's capture. t
+    is the timestamp as render takes it (a host number, or t_dev, its 0-d
+    tensor on dev), lrs the rates as radam_update takes them; in_place as
+    gate_update takes it."""
+    n_total = model.static_capacity + model.dynamic_capacity
+    params = {k: v.detach().requires_grad_(True) for k, v in model.params.items()}
+    mean2d_offset = torch.zeros((n_total, 3), device=dev, requires_grad=True)
+    flow_dirs = torch.zeros((n_total, 3), device=dev, requires_grad=True)
+
+    loss, (res, ll1) = _loss_and_aux(params, mean2d_offset, flow_dirs, model, cam, gt, t, bg,
+                                     iteration, statics, device=dev)
+    img = res.render.detach()
+    with span("ex4dgs.backward"):
+        pgrads, m2d_grad, flow_grad = _gradients(loss, params, mean2d_offset, flow_dirs)
+    with torch.no_grad(), span("ex4dgs.update"):
+        new_model, new_state = _apply_update(model, opt_state, pgrads, lrs)
+        new_model = _update_stat_accumulators(new_model, res, m2d_grad, flow_grad, t_dev,
+                                              iteration, statics.opt)
+        ok = res.binning_total <= statics.capacity
+        out_model, out_state, nan_flag = gate_update(ok, new_model, model, new_state, opt_state,
+                                                     in_place=in_place)
+    return StepOutputs(model=out_model, opt_state=out_state, loss=loss.detach(),
+                       ll1=ll1.detach(), psnr=psnr(img, gt), visibility=res.visibility_filter,
+                       binning_total=res.binning_total, nan_flag=nan_flag)
 
 
 def train_step(model: GaussianModel, opt_state: RAdamState, cam: RenderCamera, gt, t, bg,
@@ -235,32 +307,147 @@ def train_step(model: GaussianModel, opt_state: RAdamState, cam: RenderCamera, g
     state, camera and gt must already be there). Returns the new model and
     optimizer state; on a binning overflow both come back unchanged.
 
-    t is a host number (a 0-d tensor is taken too); bg [3] should be on
-    the device already. Nothing is read back to the host: the step only
-    queues work on the device."""
+    t is a host number or a 0-d tensor; bg [3] should be on the device
+    already. Nothing is read back to the host: the step only queues work on
+    the device.
+
+    On CUDA the state passed in is reused for the result: its tensors are
+    updated in place, by the eager call and by a graph's replay alike (see
+    the module docstring), and the returned model and optimizer state hold
+    those same tensors. A caller that keeps the state it passes across the
+    call copies it first (`clone_state`). loss, ll1, psnr, visibility,
+    binning_total and nan_flag are new tensors each call."""
     with span("ex4dgs.train_step"):
         dev = resolve_device(device)
         iteration = int(iteration)
-        n_total = model.static_capacity + model.dynamic_capacity
-        params = {k: v.detach().requires_grad_(True) for k, v in model.params.items()}
-        mean2d_offset = torch.zeros((n_total, 3), device=dev, requires_grad=True)
-        flow_dirs = torch.zeros((n_total, 3), device=dev, requires_grad=True)
-        t_dev = scalar_on(t, dev)
+        lrs = group_lrs(statics.opt, statics.spatial_lr_scale, iteration)
         bg = upload(bg, dev, torch.float32)
+        if dev.type != "cuda":
+            return _step(model, opt_state, cam, gt, t, scalar_on(t, dev), bg, iteration, lrs,
+                         statics, dev, in_place=False)
+        return _graphed_step(model, opt_state, cam, gt, t, bg, iteration, lrs, statics, dev)
 
-        loss, (res, ll1) = _loss_and_aux(params, mean2d_offset, flow_dirs, model, cam, gt, t,
-                                         bg, iteration, statics, device=dev)
-        img = res.render.detach()
-        with span("ex4dgs.backward"):
-            pgrads, m2d_grad, flow_grad = _gradients(loss, params, mean2d_offset, flow_dirs)
-        with torch.no_grad(), span("ex4dgs.update"):
-            new_model, new_state = _apply_update(model, opt_state, pgrads, iteration, statics)
-            new_model = _update_stat_accumulators(new_model, res, m2d_grad, flow_grad, t_dev,
-                                                  iteration, statics.opt)
-            ok = res.binning_total <= statics.capacity
-            out_model, out_state, nan_flag = gate_update(ok, new_model, model, new_state,
-                                                         opt_state)
-        return StepOutputs(model=out_model, opt_state=out_state, loss=loss.detach(),
-                           ll1=ll1.detach(), psnr=psnr(img, gt),
-                           visibility=res.visibility_filter,
-                           binning_total=res.binning_total, nan_flag=nan_flag)
+
+# ---------------------------------------------------------------------------
+# the step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+_CAMERA_TENSORS = ("view", "proj", "campos", "tan_fovx", "tan_fovy")
+
+
+class _Graph:
+    """The step of one key on one device: after its eager first call, the
+    static input buffers, the captured graph, its outputs (the small ones:
+    model and state are the caller's) and the kernel launches it records."""
+
+    def __init__(self, key: tuple):
+        self.key = key
+        self.graph = None
+        self.cam = self.gt = self.bg = self.scalars = None
+        self.out: StepOutputs | None = None
+        self.launches: dict[str, int] = {}
+
+
+_GRAPHS: dict[torch.device, _Graph] = {}  # at most one per device
+_CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _state_key(obj) -> tuple:
+    """Every tensor of a model or an optimizer state by field and name, with
+    what a graph captured on it bakes in: its address, type and layout."""
+    key = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        for name, x in (sorted(v.items()) if isinstance(v, dict) else [(None, v)]):
+            key.append((f.name, name, x.data_ptr(), x.dtype, x.shape, x.stride())
+                       if isinstance(x, torch.Tensor) else (f.name, name, x))
+    return tuple(key)
+
+
+def _graph_key(model, opt_state, cam, gt, bg, iteration, statics) -> tuple:
+    inputs = [getattr(cam, f) for f in _CAMERA_TENSORS] + [gt, bg]
+    return (statics, iteration_gates(statics.opt, iteration), cam.width, cam.height,
+            tuple((x.device, x.dtype, x.shape) for x in inputs),
+            _state_key(model), _state_key(opt_state))
+
+
+def _stage_scalars(t, lrs: dict, out: torch.Tensor) -> torch.Tensor:
+    """out [1 + len(lrs)] on the device <- t and the rates, in float32 (the
+    host values' bits as the eager kernels would round them): one pinned copy
+    that does not block, and a copy of t on the device where t is there."""
+    on_device = isinstance(t, torch.Tensor) and t.device.type != "cpu"
+    host = torch.tensor([0.0 if on_device else float(t), *(float(v) for v in lrs.values())],
+                        dtype=torch.float32)
+    upload(host, out.device, out=out)
+    if on_device:
+        out[0].copy_(t)
+    return out
+
+
+def _rates(scalars: torch.Tensor, lrs: dict) -> dict:
+    return {name: scalars[i] for i, name in enumerate(lrs, 1)}
+
+
+def _graphed_step(model, opt_state, cam, gt, t, bg, iteration: int, lrs: dict,
+                  statics: StepStatics, dev: torch.device) -> StepOutputs:
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = _graph_key(model, opt_state, cam, gt, bg, iteration, statics)
+    g = _GRAPHS.get(dev)
+    if g is None or g.key != key:
+        _GRAPHS.pop(dev, None)  # releases the old graph and its pool
+        scalars = _stage_scalars(t, lrs, torch.empty(1 + len(lrs), device=dev))
+        out = _step(model, opt_state, cam, gt, scalars[0], scalars[0], bg, iteration,
+                    _rates(scalars, lrs), statics, dev, in_place=True)
+        _GRAPHS[dev] = _Graph(key)
+        kernels.count_graph_call(dev, "eager")
+        return out
+    with span("ex4dgs.graph.stage"):
+        if g.graph is None:
+            g.cam = dataclasses.replace(cam, **{f: torch.empty_like(getattr(cam, f))
+                                                for f in _CAMERA_TENSORS})
+            g.gt, g.bg = torch.empty_like(gt), torch.empty_like(bg)
+            g.scalars = torch.empty(1 + len(lrs), device=dev)
+        for f in _CAMERA_TENSORS:
+            getattr(g.cam, f).copy_(getattr(cam, f))
+        g.gt.copy_(gt)
+        g.bg.copy_(bg)
+        _stage_scalars(t, lrs, g.scalars)
+    if g.graph is None:
+        _capture(g, model, opt_state, iteration, lrs, statics, dev)
+    with span("ex4dgs.graph.replay"):
+        g.graph.replay()
+        kernels.replayed(g.launches)
+        kernels.count_graph_call(dev, "replays")
+        o = g.out
+        return StepOutputs(model=model, opt_state=opt_state, loss=o.loss.clone(),
+                           ll1=o.ll1.clone(), psnr=o.psnr.clone(),
+                           visibility=o.visibility.clone(),
+                           binning_total=o.binning_total.clone(), nan_flag=o.nan_flag.clone())
+
+
+def _capture(g: _Graph, model, opt_state, iteration: int, lrs: dict, statics: StepStatics,
+             dev: torch.device) -> None:
+    """Capture the step on g's static inputs and the caller's state, on a
+    side stream ordered after the current one by events: no synchronize,
+    so the capture reads nothing back either. Nothing runs until a replay."""
+    if dev not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    stream = _CAPTURE_STREAMS[dev]
+    current = torch.cuda.current_stream(dev)
+    stream.wait_stream(current)
+    graph = torch.cuda.CUDAGraph()
+    t_dev = g.scalars[0]
+    with torch.cuda.device(dev), torch.cuda.stream(stream), kernels.capturing() as tally:
+        # thread_local: another thread's CUDA calls (the trainer's prefetcher)
+        # may go on while this one captures
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            out = _step(model, opt_state, g.cam, g.gt, t_dev, t_dev, g.bg, iteration,
+                        _rates(g.scalars, lrs), statics, dev, in_place=True)
+        finally:
+            graph.capture_end()
+    current.wait_stream(stream)
+    g.graph, g.launches = graph, tally
+    g.out = out._replace(model=None, opt_state=None)
+    kernels.count_graph_call(dev, "captures")

@@ -52,7 +52,7 @@ import warnings
 import numpy as np
 import torch
 
-from .. import resolve_device, upload
+from .. import kernels, resolve_device, upload
 from ..data.scene import ImagePrefetcher, Scene
 from ..io.checkpoint import save_checkpoint
 from ..io.model_ply import save_model_ply
@@ -128,7 +128,9 @@ class Trainer:
     event's transfers), `event_log` ((iteration, kind, n_static,
     n_dynamic) after each event), `overflow_count` (retries after a binning
     overflow), `test_renders` and `steps` (train_step calls, retries
-    included), `gui_renders` (viewer requests served).
+    included), `graph_calls` (how those calls ran on the card: "eager",
+    "captures", "replays" of the step's CUDA graph; `replay_share`),
+    `gui_renders` (viewer requests served).
 
     metrics_path: a JSONL file appended to as the JAX trainer writes it:
     every `log_every` iterations {"iteration", "loss", "psnr", "n_static",
@@ -190,6 +192,7 @@ class Trainer:
         self.test_renders = 0
         self.gui_renders = 0
         self.steps = 0
+        self.graph_calls = {"eager": 0, "captures": 0, "replays": 0}
         self.event_counts: dict[str, int] = {}
         self.event_ms: dict[str, list[float]] = {}
         self.pull_ms: list[float] = []
@@ -275,14 +278,25 @@ class Trainer:
         self.steps += 1
         statics = self._statics()
         if self.mesh is None:
-            return train_step(self.model, self.opt_state, cam, gt, timestamp, bg, it, statics,
-                              device=self.device)
+            before = kernels.graph_call_counts(self.device)
+            out = train_step(self.model, self.opt_state, cam, gt, timestamp, bg, it, statics,
+                             device=self.device)
+            after = kernels.graph_call_counts(self.device)
+            for kind in self.graph_calls:
+                self.graph_calls[kind] += after[kind] - before[kind]
+            return out
         if self._sharded is None or self._sharded[0] != statics:
             from ..parallel.step_dp import make_sharded_train_step
 
             self._sharded = (statics, make_sharded_train_step(statics, self.mesh,
                                                               device=self.device))
         return self._sharded[1](self.model, self.opt_state, cam, gt, timestamp, bg, it)
+
+    @property
+    def replay_share(self) -> float:
+        """The share of this trainer's train_step calls that replayed the
+        step's CUDA graph (0 with none, on the CPU and on a mesh)."""
+        return self.graph_calls["replays"] / self.steps if self.steps else 0.0
 
     # ------------------------------------------------------------------
     def train(self, iterations: int | None = None, progress=None) -> dict:

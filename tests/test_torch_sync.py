@@ -1,10 +1,12 @@
 """On the card (marker `cuda`): the step path makes no host read.
 
-train_step, the sharded step at mesh (1, 1), a render with dynamic points
-and one trainer iteration's dispatch each run once under
-torch.cuda.set_sync_debug_mode("error") (after a warm-up call;
-runtime/profiling.py::host_syncs): none may wait for the card. The file
-imports no JAX, so it runs where only the port is installed:
+train_step's three ways to run (its key's eager first call, the capture of
+its CUDA graph with the first replay, and a replay), the sharded step at
+mesh (1, 1), a render with dynamic points and one trainer iteration's
+dispatch each run under torch.cuda.set_sync_debug_mode("error") (after a
+warm-up call; runtime/profiling.py::host_syncs): none may wait for the
+card. The file imports no JAX, so it runs where only the port is
+installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_sync.py
 """
@@ -12,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from ex4dgs_tpu_torch import upload
+from ex4dgs_tpu_torch import kernels, upload
 from ex4dgs_tpu_torch.bench_frame import write_n3v_scene
 from ex4dgs_tpu_torch.data.readers import read_n3v_scene
 from ex4dgs_tpu_torch.data.scene import Scene
@@ -23,7 +25,7 @@ from ex4dgs_tpu_torch.parallel.step_dp import make_sharded_train_step
 from ex4dgs_tpu_torch.rendering import default_capacity, render
 from ex4dgs_tpu_torch.runtime.profiling import host_syncs
 from ex4dgs_tpu_torch.synthetic import make_scene, ring_cameras
-from ex4dgs_tpu_torch.train.step import StepStatics, train_step
+from ex4dgs_tpu_torch.train.step import StepStatics, clone_state, train_step
 from ex4dgs_tpu_torch.train.trainer import Trainer
 
 
@@ -44,9 +46,19 @@ def test_step_and_render_make_no_host_read(cuda_device):
     state = init_state(model.params, device=dev)
     gt, bg = torch.zeros((96, 160, 3), device=dev), torch.zeros(3, device=dev)
     sharded = make_sharded_train_step(statics, make_mesh(device=dev), device=dev)
+    # the warm-up on a copy of the state (the step updates its state in
+    # place), kept alive so that the next copy lies elsewhere: another key,
+    # whose three calls follow
+    warm = clone_state(model, state)
+    train_step(*warm, cam, gt, 2.5, bg, 700, statics, device=dev)
+    m, st = clone_state(model, state)
+    for how in ("eager", "captures", "replays"):
+        before = kernels.graph_call_counts(dev)
+        assert host_syncs(lambda: train_step(m, st, cam, gt, 2.5, bg, 700, statics,
+                                             device=dev)) == [], f"train_step ({how})"
+        after = kernels.graph_call_counts(dev)
+        assert after[how] == before[how] + 1, (how, before, after)
     calls = {
-        "train_step": lambda: train_step(model, state, cam, gt, 2.5, bg, 700, statics,
-                                         device=dev),
         "sharded step": lambda: sharded(model, state, cam, gt, 2.5, bg, 700),
         "render": lambda: render(cam, model, cfg, t=7.5, bg=bg, capacity=cap, device=dev),
     }
