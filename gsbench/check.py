@@ -1,17 +1,21 @@
 """The comparison that decides `correct`: what the timed path produced,
-against the plain reference (`reference.py`) on the same inputs.
+against a plain reference on the same inputs (Ex4DGS's: `reference.py`).
+
+The reference, the optimizer's moments and the statistics' names are the
+configuration's model family's (`families/<family>.py`); the comparisons
+are shared.
 
 Training: the reference follows `checked_steps` steps of the program's run
 twice. The start: the run's first steps, from the seeded scene, fresh
 optimizer state and statistics. The window: as many steps right after the
 window closes, through the window's own call and feed, from the model,
 optimizer state and statistics that the window left, which the reference
-takes over (there the optimizer is some hundreds of steps in, on RAdam's
-rectified branch, where the second moment sets the update). For each
+takes over (there the optimizer is some hundreds of steps in: Ex4DGS's
+RAdam is on its rectified branch, where the second moment sets the update). For each
 stretch, each number by its worst case:
   * loss_gap: |program's loss - reference's| / |reference's|, worst step;
-  * grad_gap: the first step's gradient as RAdam took it (worked out from
-    the program's first moment before and after it), per parameter leaf
+  * grad_gap: the first step's gradient as the optimizer took it (worked
+    out from the program's first moment before and after it), per leaf
     |‖g_p‖ - ‖g_r‖| / max(‖g_r‖, the median leaf's ‖g_r‖), worst leaf;
   * change_gap: the same of each leaf's change over the stretch;
   * moments_gap: the same of the change of each leaf's first and second
@@ -36,28 +40,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import reference as R
-from . import scene
+from . import families
 
 STRETCHES = ("start", "window")
 TRAIN_NUMBERS = ("loss_gap", "grad_gap", "change_gap", "moments_gap", "stats_gap",
                  "extrema_share")
-# The statistics that add up each step, and those that keep an extreme
-# (with the difference beyond rounding: absolute for whole pixels and
-# frames, relative for an error).
-SUMS = [n for what in ("grad", "count", "error", "ssim_error", "error_count")
-        for n in R.STATS[what]]
-EXTREMA = {"max_radius": 0.5, "min_radius": 0.5, "error_min_t": 0.5, "error_min": 1e-2}
-
-
-def _ref_scene(cfg: dict, seed: int, device, dtype, perturb=None):
-    sc = scene.make_params(cfg, seed, device, perturb=perturb)
-    params = {k: v.to(dtype) for k, v in sc["params"].items()}
-    return params, (sc["static_mask"], sc["dynamic_mask"]), sc
-
-
-def _host(d: dict) -> dict:
-    return {k: v.double().cpu() for k, v in d.items()}
 
 
 def _worst(per_key: dict) -> tuple[float, str]:
@@ -81,61 +68,16 @@ def _own_gap(prog: dict, ref: dict) -> tuple[float, str]:
     return _worst(gaps)
 
 
-def _extrema_share(prog: dict, ref: dict) -> tuple[float, str]:
+def _extrema_share(prog: dict, ref: dict, extrema: dict) -> tuple[float, str]:
+    """Of each statistic {name: (tolerance, relative)}, the share of rows
+    that differ beyond the tolerance; the worst statistic."""
     shares = {}
-    for what, tol in EXTREMA.items():
-        for k in R.STATS[what]:
-            a, b = prog[k].double(), ref[k].double()
-            if b.numel():
-                lim = tol * b.abs() if what == "error_min" else tol
-                shares[k] = float(((a - b).abs() > lim).double().mean())
+    for k, (tol, relative) in extrema.items():
+        a, b = prog[k].double(), ref[k].double()
+        if b.numel():
+            lim = tol * b.abs() if relative else tol
+            shares[k] = float(((a - b).abs() > lim).double().mean())
     return _worst(shares)
-
-
-def reference_run(cfg: dict, mix: dict, seed: int, device, x: dict, start: dict | None = None,
-                  first: int = 0, dtype=torch.float64, loss_rows=None, radam=R.radam) -> dict:
-    """The reference's `checked_steps` steps computed in `dtype` from step
-    `first` of the traffic: from the seeded scene with fresh optimizer
-    state and statistics, or from `start` (params, mu, nu, step, stats on
-    the host). With loss_rows, the loss is over those rows only; `radam`
-    is the update (a fault's, in the control). Returns the losses, the
-    first step's gradient, and the state at the start and after the steps
-    (params, mu, nu, stats), on the host. The parameters are stored in
-    float32 between steps, as the configuration holds them (in `dtype`
-    where that is narrower): a step's change is about an ulp of them, so
-    unrounded they would differ by the rounding alone."""
-    from .drive import backgrounds
-
-    p, masks, sc = _ref_scene(cfg, seed, device, dtype)
-    if start is None:
-        state, stats = R.init_state(p), R.init_stats(masks, dtype, device)
-    else:
-        def dev(d):
-            return {k: v.to(device=device, dtype=dtype) for k, v in d.items()}
-
-        p, stats = dev(start["params"]), dev(start["stats"])
-        state = {"mu": dev(start["mu"]), "nu": dev(start["nu"]), "step": int(start["step"])}
-    begin = {"params": _host(p), "mu": _host(state["mu"]), "nu": _host(state["nu"]),
-             "stats": _host(stats)}
-    gt_p, _, _ = _ref_scene(cfg, seed, device, dtype, perturb=mix["perturb"])
-    bgs = backgrounds(seed, mix["backgrounds"], device).to(dtype)
-    losses, grad1 = [], None
-    for i in range(first, first + mix["checked_steps"]):
-        e = x["schedule"][i]
-        cam, t = x["cams"][x["pool_cam"][e]], x["pool_t"][e]
-        gt, _ = R.render(gt_p, masks, sc, cfg, cam, t, torch.zeros(3, dtype=dtype, device=device))
-        step = R.StepInput(cam, t, gt, bgs[i % len(bgs)], mix["first_iteration"] + i)
-        p, state, stats, loss, g = R.train_step(p, state, stats, masks, sc, cfg, step,
-                                                x["spatial_scale"], loss_rows, radam)
-        if torch.finfo(dtype).bits > 32:
-            p = {k: v.float().to(dtype) for k, v in p.items()}
-        losses.append(loss)
-        if grad1 is None:
-            grad1 = _host(g)
-        del gt, g
-    return {"losses": losses, "grad1": grad1, "begin": begin,
-            "after": {"params": _host(p), "mu": _host(state["mu"]), "nu": _host(state["nu"]),
-                      "stats": _host(stats)}}
 
 
 def kept_leaves(grad: dict) -> list[str]:
@@ -151,21 +93,21 @@ def _change(run: dict, part: str) -> dict:
             for k in run["begin"][part]}
 
 
-def first_gradient(program: dict) -> dict:
-    """The gradient RAdam took in a stretch's first step, from the first
-    moment before and after it: (mu1 - beta1 mu0) / (1 - beta1)."""
+def first_gradient(program: dict, beta1: float) -> dict:
+    """The gradient the optimizer took in a stretch's first step, from the
+    first moment before and after it: (mu1 - beta1 mu0) / (1 - beta1)."""
     mu0 = program["begin"]["mu"]
-    return {k: (v.double() - R.BETA1 * mu0[k].double()) / (1.0 - R.BETA1)
+    return {k: (v.double() - beta1 * mu0[k].double()) / (1.0 - beta1)
             for k, v in program["mu1"].items()}
 
 
-def compare_stretch(program: dict, ref: dict, where: dict | None = None) -> dict:
+def compare_stretch(program: dict, ref: dict, fam, where: dict | None = None) -> dict:
     """{number: value} of one stretch of the program (losses, mu1, begin,
     after; or a reference's, with grad1 for mu1) against the reference's
-    (losses, grad1, begin, after). `where` gets each number's worst step,
-    leaf or statistic."""
+    (losses, grad1, begin, after), with the family `fam`'s optimizer and
+    statistics. `where` gets each number's worst step, leaf or statistic."""
     keep = kept_leaves(ref["grad1"])
-    grad1 = program["grad1"] if "grad1" in program else first_gradient(program)
+    grad1 = program["grad1"] if "grad1" in program else first_gradient(program, fam.BETA1)
     got = {
         "loss_gap": _worst({f"step {i}": abs(a - b) / abs(b) for i, (a, b) in
                             enumerate(zip(program["losses"], ref["losses"]))}),
@@ -173,9 +115,10 @@ def compare_stretch(program: dict, ref: dict, where: dict | None = None) -> dict
         "change_gap": _leaf_gap(_change(program, "params"), _change(ref, "params"), keep),
         "moments_gap": max(_leaf_gap(_change(program, m), _change(ref, m), keep)
                            for m in ("mu", "nu")),
-        "stats_gap": _own_gap(*({k: c[k] for k in SUMS}
+        "stats_gap": _own_gap(*({k: c[k] for k in fam.SUMS}
                                 for c in (_change(program, "stats"), _change(ref, "stats")))),
-        "extrema_share": _extrema_share(program["after"]["stats"], ref["after"]["stats"]),
+        "extrema_share": _extrema_share(program["after"]["stats"], ref["after"]["stats"],
+                                        fam.EXTREMA),
     }
     if where is not None:
         where.update({k: w for k, (_, w) in got.items()})
@@ -188,20 +131,22 @@ def with_limits(got: dict, limits: dict) -> dict:
 
 def reference_stretches(cfg: dict, mix: dict, seed: int, device, x: dict, program: dict,
                         **kw) -> dict:
-    """The reference over each stretch of the program's run (see
-    reference_run for kw)."""
-    return {s: reference_run(cfg, mix, seed, device, x,
-                             program[s]["begin"] if s == "window" else None,
-                             program[s]["first"], **kw) for s in STRETCHES}
+    """The family's reference over each stretch of the program's run (see
+    its reference_stretch for kw)."""
+    ref = families.load(cfg).reference_stretch
+    return {s: ref(cfg, mix, seed, device, x, program[s]["begin"] if s == "window" else None,
+                   program[s]["first"], **kw) for s in STRETCHES}
 
 
-def compare_train(program: dict, refs: dict, where: dict | None = None) -> dict:
+def compare_train(program: dict, refs: dict, fam, where: dict | None = None) -> dict:
     """{stretch.number: value} of the program's stretches against the
-    reference's; `where` gets each number's worst step, leaf or statistic."""
+    reference's, with the family `fam`'s optimizer and statistics; `where`
+    gets each number's worst step, leaf or statistic."""
     out = {}
     for s in STRETCHES:
         w = {}
-        out.update({f"{s}.{k}": v for k, v in compare_stretch(program[s], refs[s], w).items()})
+        out.update({f"{s}.{k}": v
+                    for k, v in compare_stretch(program[s], refs[s], fam, w).items()})
         if where is not None:
             where.update({f"{s}.{k}": v for k, v in w.items()})
     return out
@@ -213,7 +158,7 @@ def train(cfg: dict, mix: dict, seed: int, device, x: dict, program: dict,
     docstring) against the float64 reference, each with its limit."""
     refs = reference_stretches(cfg, mix, seed, device, x, program)
     where = {}
-    got = compare_train(program, refs, where)
+    got = compare_train(program, refs, families.load(cfg), where)
     print("# worst: " + ", ".join(f"{k} {w}" for k, w in where.items()), flush=True)
     return with_limits(got, limits)
 
@@ -225,10 +170,9 @@ def to_bytes(img: torch.Tensor) -> np.ndarray:
 
 
 def reference_frames(cfg: dict, seed: int, device, views, dtype=torch.float64) -> list:
-    """The reference's bytes of each (camera, t) in `views`."""
-    p, masks, sc = _ref_scene(cfg, seed, device, dtype)
-    zero = torch.zeros(3, dtype=dtype, device=device)
-    return [to_bytes(R.render(p, masks, sc, cfg, cam, t, zero)[0]) for cam, t in views]
+    """The family's reference's bytes of each (camera, t) in `views`."""
+    frames = families.load(cfg).reference_frames(cfg, seed, device, views, dtype)
+    return [to_bytes(f) for f in frames]
 
 
 def render(cfg: dict, seed: int, device, sample, limits: dict) -> dict:

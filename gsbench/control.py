@@ -8,10 +8,11 @@ traffic, checked as a run checks it; a training run with the benchmark's
 window, a render run with a short one) and the
 control's: the reference computed in bfloat16, the precision below the
 configuration's float32, put in the program's place. A training cell adds
-its faults, each the reference with the fault put in the program's place:
-half of each image left out of the loss (the mean over the other half);
-the second moment stored without the new gradient's square; and a step
-that returns its state unchanged. One JSON line per seed, then a summary:
+its faults: the model family's (`families/<family>.py`'s `faults`), each
+its reference with the fault put in the program's place (Ex4DGS: half of
+each image left out of the loss, the mean over the other half; the second
+moment stored without the new gradient's square); and a step that returns
+its state unchanged. One JSON line per seed, then a summary:
 per number, the largest program reading and the smallest reading of the
 control and of each fault.
 """
@@ -24,18 +25,9 @@ from pathlib import Path
 
 import torch
 
-from . import check, drive, run
-from . import reference as R
+from . import check, drive, families, run
 
 WINDOW_S = {"train": 0.5, "render": 2.0}
-
-
-def radam_nu_unfed(p, g, state, lrs):
-    """RAdam whose stored second moment leaves out the new gradient's
-    square (the update itself is RAdam's)."""
-    new_p, new_state = R.radam(p, g, state, lrs)
-    new_state["nu"] = {k: R.BETA2 * v for k, v in state["nu"].items()}
-    return new_p, new_state
 
 
 def unchanged(program: dict) -> dict:
@@ -55,23 +47,22 @@ def readings(plan: dict, seed: int, device, seconds: float | None = None) -> dic
     drive.release(device)
     out = {}
     if mix["kind"] == "train":
+        fam = families.load(cfg)
         x = drive.train_inputs(cfg, mix, seed)
         prog = rec["program"]
         ref = check.reference_stretches(cfg, mix, seed, device, x, prog)
 
         def vs_ref(refs):
-            return check.compare_train(refs, ref)
+            return check.compare_train(refs, ref, fam)
 
         out["left_out"] = {s: sorted(set(r["grad1"]) - set(check.kept_leaves(r["grad1"])))
                            for s, r in ref.items()}
-        out["program"] = check.compare_train(prog, ref)
+        out["program"] = check.compare_train(prog, ref, fam)
         out["control"] = vs_ref(check.reference_stretches(cfg, mix, seed, device, x, prog,
                                                           dtype=torch.bfloat16))
-        out["half_batch"] = vs_ref(check.reference_stretches(
-            cfg, mix, seed, device, x, prog, loss_rows=slice(0, cfg["height"] // 2)))
-        out["nu_unfed"] = vs_ref(check.reference_stretches(cfg, mix, seed, device, x, prog,
-                                                           radam=radam_nu_unfed))
-        out["state_unchanged"] = check.compare_train(unchanged(prog), ref)
+        for name, kw in fam.faults(cfg).items():
+            out[name] = vs_ref(check.reference_stretches(cfg, mix, seed, device, x, prog, **kw))
+        out["state_unchanged"] = check.compare_train(unchanged(prog), ref, fam)
     else:
         views = [v for v, _ in rec["sample"]]
         ref = check.reference_frames(cfg, seed, device, views)

@@ -5,18 +5,14 @@ Operations are those of the algorithm's formulas, whatever implements
 them: each multiply and each add or subtract counts one (a fused
 multiply-add two), and exp, sqrt and reciprocals count nothing, so every
 figure is a lower bound of the work. Compositing work is charged to the
-(splat, pixel) pairs that these inputs need, counted by the reference
-(`reference.composite`): a pair contributes when its pixel is still open
-and it passes the power and alpha tests, and is applied when the pixel
-stays open after it. Bytes count each input read once and each output
-written once, at the algorithm's least: a splat's screen data once, one
-index per tile instance, a pixel's outputs once.
+(splat, pixel) pairs that these inputs need, counted by the model family's
+`census` (Ex4DGS's: `reference.composite`): a pair contributes when its
+pixel is still open and it passes the power and alpha tests, and is
+applied when the pixel stays open after it. Bytes count each input read
+once and each output written once, at the algorithm's least: a splat's
+screen data once, one index per tile instance, a pixel's outputs once.
 """
 from __future__ import annotations
-
-import torch
-
-from . import reference as R
 
 # NVIDIA H100 SXM data sheet, at its 700 W power limit.
 PEAK_FP32_FLOPS = 67e12  # float32 outside the tensor cores, an FMA counted as two
@@ -115,22 +111,3 @@ def least_seconds(flops: float, nbytes: float) -> float:
     """The least time the H100 could take: the larger of the operations at
     the float32 peak and the bytes at the HBM rate."""
     return max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES_S)
-
-
-def census(params: dict, masks: tuple, sc: dict, cfg: dict, cam: dict, t: float) -> dict:
-    """What one frame of `params` seen by `cam` at t asks of the device, by
-    the reference in float32: (contributing, applied) pairs, tile
-    instances, visible static and dynamic splats, pixels, and the active
-    parameter elements a step updates."""
-    with torch.no_grad():
-        p = {k: v.float() for k, v in params.items()}
-        scr = R.project(*R.splats_at(p, masks, sc, cfg, t), cam, cfg)
-        _, pairs, _ = R.composite(scr, cfg, cam, torch.zeros(3, device=scr.xy.device))
-        order, _, _ = R.tile_lists(scr, cfg, cam["width"], cam["height"])
-    ps = masks[0].shape[0]
-    rows = {"static": int(masks[0].sum()), "motion": int(masks[1].sum())}
-    elements = sum(rows["motion" if k.startswith("motion_") else "static"] * v[0].numel()
-                   for k, v in params.items())
-    return {"pairs": pairs, "instances": int(order.shape[0]),
-            "static": int(scr.valid[:ps].sum()), "dynamic": int(scr.valid[ps:].sum()),
-            "pixels": cam["width"] * cam["height"], "param_elements": elements}

@@ -1,15 +1,17 @@
 """The general traffic generator: one closed-loop client of the program, set up
 from a configuration and a traffic mix, both plain data.
 
-A mix's `kind` names the entry point it drives:
-  * `train`: `ex4dgs_tpu_torch.train.step.train_step` in a closed loop, the
-    model and optimizer state carried from step to step as the trainer
-    carries them, over a pool of ground-truth images on the device;
-  * `render`: `ex4dgs_tpu_torch.rendering.render` as the trainer's viewer
-    calls it, one client asking for the next frame when it has the last,
-    each frame read back to the host as the viewer reads it before its
-    reply (the reply's conversion to bytes is left out: the check makes
-    the bytes afterwards).
+The configuration's model family (`families/<family>.py`) gives the program
+under test (`Program`) and its scene. A mix's `kind` names the entry point
+it drives:
+  * `train`: the family's training step in a closed loop, its state
+    carried from step to step as the trainer carries it, over a pool of
+    ground-truth images on the device, each step taking the family's
+    `VIEWS_PER_STEP` entries of the pool's schedule;
+  * `render`: the family's render as the trainer's viewer calls it, one
+    client asking for the next frame when it has the last, each frame read
+    back to the host as the viewer reads it before its reply (the reply's
+    conversion to bytes is left out: the check makes the bytes afterwards).
 Everything else in a mix is a number the generator reads. `run_cell` returns
 the run's record: what the metrics' readers and the correctness check
 read.
@@ -17,58 +19,13 @@ read.
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import gc
 import time
 
 import numpy as np
 import torch
 
-from . import check, counts, reference, scene, trace
-
-
-class Program:
-    """The system under test: the port's model, configs and cameras for
-    one configuration, built from the benchmark's inputs."""
-
-    def __init__(self, cfg: dict, device):
-        from ex4dgs_tpu_torch.kernel_config import KernelConfig
-        from ex4dgs_tpu_torch.models.config import ModelConfig, OptimizationConfig, overlay_json
-        from ex4dgs_tpu_torch.rendering import default_capacity
-
-        self.cfg, self.device = cfg, torch.device(device)
-        self.mcfg = dataclasses.replace(overlay_json(ModelConfig(), cfg), duration=cfg["frames"])
-        self.ocfg = overlay_json(OptimizationConfig(), cfg)
-        self.kcfg = KernelConfig(tile_x=cfg["tile"][0], tile_y=cfg["tile"][1],
-                                 exact_sort=cfg["exact_sort"]).validate()
-        ps, pd = scene.capacities(cfg)
-        self.capacity = default_capacity(ps + pd, cfg["width"], cfg["height"], self.kcfg)
-
-    def model(self, sc: dict):
-        from ex4dgs_tpu_torch.models.state import empty_model
-
-        ps, pd = scene.capacities(self.cfg)
-        m = empty_model(self.mcfg, ps, pd, sc["keyframe_num"], sc["duration"], self.device)
-        i32 = dict(dtype=torch.int32, device=self.device)
-        return m.replace(params=dict(sc["params"]), static_mask=sc["static_mask"],
-                         dynamic_mask=sc["dynamic_mask"],
-                         active_sh_degree=torch.tensor(sc["active_sh_degree"], **i32),
-                         keyframe_num=torch.tensor(sc["keyframe_num"], **i32))
-
-    def camera(self, c: dict):
-        from ex4dgs_tpu_torch.rendering import RenderCamera
-
-        return RenderCamera.from_fov(c["view"], c["proj"], c["campos"], c["width"],
-                                     c["height"], c["fovx"], c["fovy"], device=self.device)
-
-    def render(self, model, cam, t: float):
-        """A frame as the trainer's viewer asks for it (Trainer._gui_render)."""
-        from ex4dgs_tpu_torch.rendering import render
-
-        with torch.no_grad():
-            return render(cam, model, self.mcfg, t=t, bg=torch.zeros(3, device=self.device),
-                          capacity=self.capacity, scaling_modifier=1.0, kernel_cfg=self.kcfg,
-                          track_idx=False, device=self.device)
+from . import check, families, scene, trace
 
 
 def _no_spans(name):
@@ -128,14 +85,22 @@ class _Schedule:
 def train_inputs(cfg: dict, mix: dict, seed: int) -> dict:
     """The training traffic's host inputs: the pool's (camera, frame)
     pairs, every camera in the same share, frames uniform over the
-    duration; the schedule; the backgrounds' seed."""
+    duration; the schedule; the views a step takes."""
     rng = np.random.default_rng([seed, 1])
     cams = scene.rig_cameras(cfg)
     n = mix["gt_frames"]
     pool_cam = [e % len(cams) for e in range(n)]
     pool_t = rng.integers(0, cfg["frames"], n).astype(float).tolist()
     return {"cams": cams, "pool_cam": pool_cam, "pool_t": pool_t,
-            "schedule": _Schedule(n, seed), "spatial_scale": scene.cameras_extent(cfg)}
+            "schedule": _Schedule(n, seed), "spatial_scale": scene.cameras_extent(cfg),
+            "views": families.load(cfg).VIEWS_PER_STEP}
+
+
+def entries(x: dict, i: int) -> list[int]:
+    """The pool entries of step i: the schedule's V i .. V i + V - 1, for
+    V views a step."""
+    v = x["views"]
+    return [x["schedule"][v * i + j] for j in range(v)]
 
 
 def backgrounds(seed: int, n: int, device) -> torch.Tensor:
@@ -146,10 +111,7 @@ def backgrounds(seed: int, n: int, device) -> torch.Tensor:
 
 
 def run_train(cfg: dict, mix: dict, seed: int, seconds: float, traced: bool, device) -> dict:
-    from ex4dgs_tpu_torch.models.optimizer import init_state
-    from ex4dgs_tpu_torch.train.step import StepStatics, train_step
-
-    prog = Program(cfg, device)
+    prog = families.load(cfg).Program(cfg, device)
     x = train_inputs(cfg, mix, seed)
     cams = [prog.camera(c) for c in x["cams"]]
     # The pool: renders of a seeded perturbation of the scene (colours and
@@ -165,43 +127,37 @@ def run_train(cfg: dict, mix: dict, seed: int, seconds: float, traced: bool, dev
     if int(torch.stack(totals).max()) > prog.capacity:
         raise RuntimeError("a ground-truth render overflowed the capacity")
     del target, res, totals
-    model = prog.model(scene.make_params(cfg, seed, device))
-    state = init_state(model.params, device=device)
-    statics = StepStatics(cfg=prog.mcfg, opt=prog.ocfg, spatial_lr_scale=x["spatial_scale"],
-                          capacity=prog.capacity, kernel=prog.kcfg)
+    carried = prog.start(prog.model(scene.make_params(cfg, seed, device)))
     bgs = backgrounds(seed, mix["backgrounds"], device)
-    sched, first_it = x["schedule"], mix["first_iteration"]
-    carried = {"model": model, "state": state}
+    first_it = mix["first_iteration"]
     totals, flags, dispatch = [], [], []
 
     def step(i: int, timed: bool = True):
-        e = sched[i]
+        es = entries(x, i)
         t0 = time.perf_counter()
-        out = train_step(carried["model"], carried["state"], cams[x["pool_cam"][e]], pool[e],
-                         x["pool_t"][e], bgs[i % len(bgs)], first_it + i, statics,
-                         device=device)
+        loss, total, nan_flag = prog.step(carried, [cams[x["pool_cam"][e]] for e in es],
+                                          [pool[e] for e in es], [x["pool_t"][e] for e in es],
+                                          bgs[i % len(bgs)], first_it + i)
         if timed:
             dispatch.append(time.perf_counter() - t0)
-        carried["model"], carried["state"] = out.model, out.opt_state
         # binning_total is a view of the binning's prefix sums: a copy, so
         # that keeping it does not keep them
-        totals.append(out.binning_total.clone())
-        flags.append(out.nan_flag)
-        return out
+        totals.append(total.clone())
+        flags.append(nan_flag)
+        return loss
 
     def stretch(first: int) -> dict:
         """checked_steps steps from step `first`, through the window's own
         call and feed: the state before and after them, their losses and
         the first moment after the first, on the host."""
-        begin = _snapshot(carried["model"], carried["state"])
+        begin = prog.snapshot(carried)
         losses, mu1 = [], None
         for i in range(first, first + mix["checked_steps"]):
-            out = step(i, timed=False)
-            losses.append(float(out.loss))
+            losses.append(float(step(i, timed=False)))
             if mu1 is None:
-                mu1 = _host(out.opt_state.mu)
+                mu1 = prog.snapshot(carried)["mu"]
         return {"first": first, "begin": begin, "losses": losses, "mu1": mu1,
-                "after": _snapshot(carried["model"], carried["state"])}
+                "after": prog.snapshot(carried)}
 
     # The first steps, which the reference follows, then the warm-up.
     program = {"start": stretch(0)}
@@ -224,9 +180,8 @@ def run_train(cfg: dict, mix: dict, seed: int, seconds: float, traced: bool, dev
 
         def profiled(j):
             i = done + j
-            e = sched[i]
-            snaps.append((carried["model"].params, x["cams"][x["pool_cam"][e]],
-                          x["pool_t"][e]))
+            snaps.append((prog.current(carried),
+                          [(x["cams"][x["pool_cam"][e]], x["pool_t"][e]) for e in entries(x, i)]))
             step(i, timed=False)
 
         rec["profile"] = trace.profile_calls(profiled, mix["profiled_calls"], "gsbench.train_step",
@@ -236,21 +191,11 @@ def run_train(cfg: dict, mix: dict, seed: int, seconds: float, traced: bool, dev
     # The steps after the window, from the state it left; then the
     # program's state is freed before the reference runs.
     program["window"] = stretch(done)
-    del carried, pool, cams, state, model
+    del carried, pool, cams
     rec["program"] = program
     rec["check"] = lambda limits: check.train(cfg, mix, seed, device, x, rec["program"],
                                               limits)
     return rec
-
-
-def _host(d: dict) -> dict:
-    return {k: v.detach().cpu() for k, v in d.items()}
-
-
-def _snapshot(model, state) -> dict:
-    """The training state the reference compares, on the host."""
-    return {"params": _host(model.params), "mu": _host(state.mu), "nu": _host(state.nu),
-            "step": int(state.step), "stats": _host(model.stats)}
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +203,7 @@ def _snapshot(model, state) -> dict:
 # ---------------------------------------------------------------------------
 
 def run_render(cfg: dict, mix: dict, seed: int, seconds: float, traced: bool, device) -> dict:
-    prog = Program(cfg, device)
+    prog = families.load(cfg).Program(cfg, device)
     model = prog.model(scene.make_params(cfg, seed, device))
     path = scene.path_cameras(cfg, mix["path_frames"], seed)
     t0_frame = int(np.random.default_rng([seed, 2]).integers(cfg["frames"]))
@@ -314,7 +259,7 @@ def run_render(cfg: dict, mix: dict, seed: int, seconds: float, traced: bool, de
 
         def profiled(j):
             i = n0 + calls + j
-            views.append((model.params, *frame_of(i)))
+            views.append((model, [frame_of(i)]))
             frame(i, timed=False, spans=record_function)
 
         rec["profile"] = trace.profile_calls(profiled, mix["profiled_calls"], "gsbench.frame",
@@ -328,12 +273,13 @@ def run_render(cfg: dict, mix: dict, seed: int, seconds: float, traced: bool, de
 
 
 def _work(cfg: dict, seed: int, device, calls) -> list[dict]:
-    """Per profiled call, what the yardstick charges: the reference's pair
-    counts, instances and visible splats (float32, no gradient), and the
-    pixels and active parameter elements."""
+    """Per profiled call (model, [(camera, t)]), what the yardstick charges:
+    the family's census of it (the reference's pair counts, instances and
+    visible splats in float32, no gradient; the pixels and active parameter
+    elements)."""
     sc = scene.make_params(cfg, seed, device)
-    masks = (sc["static_mask"], sc["dynamic_mask"])
-    return [counts.census(params, masks, sc, cfg, cam, t) for params, cam, t in calls]
+    census = families.load(cfg).census
+    return [census(cfg, sc, model, views) for model, views in calls]
 
 
 RUNNERS = {"train": run_train, "render": run_render}

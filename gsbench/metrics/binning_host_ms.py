@@ -1,5 +1,5 @@
 """Host ms per call in the span `ex4dgs.binning`, binning: keys, depth sort,
-tile ranges (`binning_host_ms.train`, `binning_host_ms.render`)."""
+tile ranges (`binning_host_ms.render`)."""
 from gsbench.spans import host_ms
 
 

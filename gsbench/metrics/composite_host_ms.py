@@ -1,6 +1,5 @@
 """Host ms per call in the span `ex4dgs.composite`, pack, kernel A and
-untiling, the forward only (`composite_host_ms.train`,
-`composite_host_ms.render`)."""
+untiling (`composite_host_ms.render`)."""
 from gsbench.spans import host_ms
 
 

@@ -1,5 +1,5 @@
 """Host ms per call in the span `ex4dgs.temporal`, the temporal query
-(`point_data_at_t`) (`temporal_host_ms.train`, `temporal_host_ms.render`)."""
+(`point_data_at_t`) (`temporal_host_ms.render`)."""
 from gsbench.spans import host_ms
 
 

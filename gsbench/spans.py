@@ -2,7 +2,9 @@
 of one of the program's layer spans (`ex4dgs.<layer>`), from the program's
 span record (`ex4dgs_tpu_torch.runtime.profiling.span_summary`). The
 record fills only while a profiler runs, so in a traced run it holds the
-traced calls (`trace.profile_calls`) and nothing else."""
+traced calls (`trace.profile_calls`) and nothing else. A replayed training
+step (a CUDA graph) opens no layer span, so only the render cells list
+these metrics."""
 from __future__ import annotations
 
 
