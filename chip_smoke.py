@@ -5,6 +5,7 @@ paths on one NVIDIA GPU and check them.
     python3 chip_smoke.py --only 12   # phases 8 and 12 (step, host reads, trainer)
     python3 chip_smoke.py --only 16   # phase 16 and the inputs it needs
     python3 chip_smoke.py --only 17   # phase 17 (the bench entry point) alone
+    python3 chip_smoke.py --only 18   # phase 18 (the slicing kernel pair) alone
 
 Phases (any failure ends the script with a non-zero exit and no result line):
 
@@ -233,6 +234,21 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    bench sized (its instances and capacity must be the run's), A against
    its plain version as in phase 3, B bit-equal to its twin and within
    BWD_RTOL/BWD_ATOL of its plain version as in phase 5.
+18. the slicing kernel pair of 4D Gaussian Splatting (csrc/slice4d_fwd.cu,
+   csrc/slice4d_bwd.cu) at the shape of the n3v_4dgs cell: 500,000 4D
+   Gaussians in a capacity of 503,808 rows, SH degree 3 x time degree 2.
+   At the cell's degrees and at pairs below degree 3 (SLICE_DEGREES), both
+   kernels against their plain versions on the card (ops/slice4d.py: the
+   forward within SLICE_RTOL of each output's largest value, at most
+   SLICE_LIVE_SLACK rows' 0.05 marginal test flipped; every gradient within
+   SLICE_BWD_RTOL of its leaf's largest) and two launches bit-equal. At the
+   cell's degrees both are timed with CUDA events beside their plain
+   versions and their bound, the bytes of the call's inputs and outputs at
+   3.35 TB/s (698 and 1,340 B a row); a time below the bound fails. Then
+   train_step_4d on four 1352x1014 views (16x16 tiles, exact sort) three
+   times (an eager call; a capture, which replays; a replay), with the
+   launch and graph counters set to 0 before: each kernel must launch
+   once a view.
 
 The lines before the last are the card's name and power limit (as
 nvidia-smi prints them) and a JSON object with one entry per kernel; the
@@ -2710,6 +2726,209 @@ def bench_alone() -> int:
     return 0
 
 
+# -- 18. the slicing kernel pair (4D Gaussian Splatting) --------------------
+
+SLICE_ROWS = 500_000  # the n3v_4dgs cell's Gaussians, in a capacity of 503,808 rows
+SLICE_SPAN = 10.0  # seconds: the cell's time span
+SLICE_W, SLICE_H = 1352, 1014
+# the cell's degrees, then pairs below SH degree 3 (where the backward once
+# left the basis's cotangent past the active degree unzeroed) and time
+# degree 0
+SLICE_DEGREES = ((3, 2), (2, 2), (2, 1), (1, 0), (0, 0))
+SLICE_LIVE_SLACK = 10  # rows whose 0.05 marginal test may flip at a rounding
+
+
+def rel_err(a, b) -> float:
+    """Largest |a - b| over the largest |b| (the difference itself where b
+    is all 0)."""
+    diff = float((a.double() - b.double()).abs().max())
+    den = float(b.double().abs().max())
+    return diff / den if den > 0 else diff
+
+
+def fourdgs_scene(dev, rows: int = SLICE_ROWS, seed: int = 18):
+    """A Gaussian4DModel shaped as the n3v_4dgs cell's
+    (gsbench/configs/n3v_4dgs.json): `rows` active 4D Gaussians in the
+    port's rounded capacity at SH degree 3 x time degree 2 (48 feature
+    rows); a cloud of std 2.4, time means uniform over the span, log-scales
+    uniform in log [0.018, 0.09] and log [0.4, 0.9] s, each quaternion pair
+    a 3D orientation (rotating xyz, fixing t) perturbed by N(0, 0.15) so
+    that space and time mix, opacities uniform in [0.15, 0.95]; the rows
+    past them as empty_model leaves them."""
+    from ex4dgs_tpu_torch.models.config import Model4DConfig
+    from ex4dgs_tpu_torch.models.state4d import empty_model
+    from ex4dgs_tpu_torch.ops.math3d import SH_C0
+
+    model = empty_model(Model4DConfig(time_duration=(0.0, SLICE_SPAN)), rows, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, **f32)
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, **f32)
+
+    def unit(q):
+        return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+    u = unit(normal(rows, 4))
+    flip = torch.tensor([1.0, -1.0, -1.0, 1.0], **f32)
+    n_rest = model.params["f_rest"].shape[1]
+    new = {"xyz": normal(rows, 3) * 2.4, "t": uniform(0.0, SLICE_SPAN, rows, 1),
+           "scaling": uniform(math.log(0.018), math.log(0.09), rows, 3),
+           "scaling_t": uniform(math.log(0.4), math.log(0.9), rows, 1),
+           "rotation": unit(u + 0.15 * normal(rows, 4)),
+           "rotation_r": unit(u * flip + 0.15 * normal(rows, 4)),
+           "opacity": torch.logit(uniform(0.15, 0.95, rows, 1)),
+           "f_dc": (uniform(0.05, 0.95, rows, 1, 3) - 0.5) / SH_C0,
+           "f_rest": normal(rows, n_rest, 3) * 0.08}
+    for k, v in new.items():
+        model.params[k][:rows] = v
+    model.mask[:rows] = True
+    i32 = dict(dtype=torch.int32, device=dev)
+    return model.replace(active_sh_degree=torch.tensor(3, **i32),
+                         active_sh_degree_t=torch.tensor(2, **i32))
+
+
+def slice4d_phase(dev, card: str) -> list[dict]:
+    """Phase 18 (see the module's docstring). Returns the kernels line's
+    entries of slice4d_fwd and slice4d_bwd."""
+    from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch.bench_frame import cuda_ms
+    from ex4dgs_tpu_torch.kernel_config import KernelConfig
+    from ex4dgs_tpu_torch.models.config import Model4DConfig, Optimization4DConfig
+    from ex4dgs_tpu_torch.models.optimizer import init_state
+    from ex4dgs_tpu_torch.ops import slice4d as S
+    from ex4dgs_tpu_torch.rendering import default_capacity
+    from ex4dgs_tpu_torch.synthetic import ring_cameras
+    from ex4dgs_tpu_torch.train import step as step_mod
+
+    model = fourdgs_scene(dev)
+    P = model.capacity
+    params = [model.params[k] for k in S.PARAMS]
+    mask = model.mask
+    t = torch.tensor(3.7, device=dev)
+    campos = torch.tensor([1.5, 4.0, -11.5], device=dev)
+    g = torch.Generator(device=dev).manual_seed(19)
+    cots = [torch.randn(s, generator=g, device=dev) for s in ((P, 3), (P, 6), (P,), (P, 3))]
+    worst = {"slice4d_fwd": 0.0, "slice4d_bwd": 0.0}
+    for deg, deg_t in SLICE_DEGREES:
+        d = torch.tensor(deg, dtype=torch.int32, device=dev)
+        d_t = torch.tensor(deg_t, dtype=torch.int32, device=dev)
+        fwd = kernels.slice4d_fwd(*params, mask, t, campos, d, d_t, span=SLICE_SPAN)
+        fwd2 = kernels.slice4d_fwd(*params, mask, t, campos, d, d_t, span=SLICE_SPAN)
+        want = S.slice4d_plain(*params, mask, t, campos, d, d_t, span=SLICE_SPAN)
+        err_f = max(rel_err(a, b) for a, b in zip(fwd[:4], want[:4]))
+        flips = int((fwd[4] != want[4]).sum())
+        bwd = kernels.slice4d_bwd(*params, t, campos, d, d_t, *cots, span=SLICE_SPAN)
+        bwd2 = kernels.slice4d_bwd(*params, t, campos, d, d_t, *cots, span=SLICE_SPAN)
+        errs_b = [rel_err(a, b) for a, b in zip(bwd, S.slice4d_bwd_plain(
+            *params, t, campos, d, d_t, *cots, span=SLICE_SPAN))]
+        err_b = max(errs_b)
+        same = (all(torch.equal(a, b) for a, b in zip(fwd, fwd2))
+                and all(torch.equal(a, b) for a, b in zip(bwd, bwd2)))
+        log(f"# slice4d degrees ({deg}, {deg_t}) at {P} rows ({int(fwd[4].sum())} live): "
+            f"forward {err_f:.3g} of each output's largest (<= {S.SLICE_RTOL:g}), "
+            f"{flips} live flips (<= {SLICE_LIVE_SLACK}); backward {err_b:.3g} of each leaf's "
+            f"largest (<= {S.SLICE_BWD_RTOL:g}; worst {S.PARAMS[errs_b.index(err_b)]}); "
+            f"two launches bit-equal: {same}")
+        if not (err_f <= S.SLICE_RTOL and flips <= SLICE_LIVE_SLACK
+                and err_b <= S.SLICE_BWD_RTOL and same):
+            fail(f"the slicing kernels disagree with their plain versions at degrees "
+                 f"({deg}, {deg_t})")
+        worst["slice4d_fwd"] = max(worst["slice4d_fwd"], err_f)
+        worst["slice4d_bwd"] = max(worst["slice4d_bwd"], err_b)
+        del fwd, fwd2, want, bwd, bwd2
+
+    # times at the cell's degrees (the last pair's tensors are rebuilt)
+    d = torch.tensor(3, dtype=torch.int32, device=dev)
+    d_t = torch.tensor(2, dtype=torch.int32, device=dev)
+    fwd = kernels.slice4d_fwd(*params, mask, t, campos, d, d_t, span=SLICE_SPAN)
+    bwd = kernels.slice4d_bwd(*params, t, campos, d, d_t, *cots, span=SLICE_SPAN)
+
+    def nbytes(*xs):
+        return sum(x.numel() * x.element_size() for x in xs)
+
+    moved = {"slice4d_fwd": nbytes(*params, mask, *fwd), "slice4d_bwd": nbytes(*params, *cots,
+                                                                               *bwd)}
+    ms = {"slice4d_fwd": cuda_ms(lambda: kernels.slice4d_fwd(
+              *params, mask, t, campos, d, d_t, span=SLICE_SPAN), reps=50),
+          "slice4d_bwd": cuda_ms(lambda: kernels.slice4d_bwd(
+              *params, t, campos, d, d_t, *cots, span=SLICE_SPAN), reps=50)}
+    plain_ms = {"slice4d_fwd": cuda_ms(lambda: S.slice4d_plain(
+                    *params, mask, t, campos, d, d_t, span=SLICE_SPAN), reps=3, warmup=1),
+                "slice4d_bwd": cuda_ms(lambda: S.slice4d_bwd_plain(
+                    *params, t, campos, d, d_t, *cots, span=SLICE_SPAN), reps=3, warmup=1)}
+    bound = {k: 1e3 * v / HBM_BYTES_S for k, v in moved.items()}
+    for k in ms:
+        log(f"# {k}: {ms[k]:.4f} ms at {P} rows (CUDA events, 50 launches), plain "
+            f"{plain_ms[k]:.4f} ms; bound {bound[k]:.4f} ms ({moved[k] / P:.0f} B a row, "
+            f"{moved[k] / 1e6:.1f} MB at {HBM_BYTES_S / 1e12:.2f} TB/s), "
+            f"{100 * bound[k] / ms[k]:.1f}% of it; {card}")
+        if ms[k] < bound[k]:
+            fail(f"{k} read {ms[k]:.4f} ms, below its bound {bound[k]:.4f} ms")
+    del fwd, bwd, cots
+
+    # the launches of the training step: eager call, capture, replay
+    kcfg = KernelConfig(tile_x=16, tile_y=16, exact_sort=True).validate()
+    statics = step_mod.Step4DStatics(
+        cfg=Model4DConfig(time_duration=(0.0, SLICE_SPAN)), opt=Optimization4DConfig(),
+        spatial_lr_scale=1.0, capacity=default_capacity(P, SLICE_W, SLICE_H, kcfg), kernel=kcfg)
+    cams = ring_cameras(8, 12.0, SLICE_W, SLICE_H, device=dev)
+    gts = [torch.rand((SLICE_H, SLICE_W, 3), generator=g, device=dev) for _ in range(4)]
+    state = init_state(model.params, device=dev)
+    step_mod._GRAPHS.clear()
+    kernels.reset_launches()
+    kernels.reset_graph_calls()
+    outs = []
+    for i in range(3):
+        views = [cams[(2 * i + j) % len(cams)] for j in range(4)]
+        out = step_mod.train_step_4d(model, state, views, gts,
+                                     [0.9 + 2.3 * j + 0.4 * i for j in range(4)],
+                                     torch.rand(3, generator=g, device=dev), 10_000 + i, statics,
+                                     device=dev)
+        model, state = out.model, out.opt_state
+        outs.append((float(out.loss), bool(out.nan_flag), int(out.binning_total)))
+    torch.cuda.synchronize()
+    calls = kernels.graph_call_counts(dev)
+    launched = {k: kernels.launches[k] for k in ("slice4d_fwd", "slice4d_bwd")}
+    log(f"# train_step_4d x3 at {SLICE_W}x{SLICE_H}, 4 views (loss, nan, largest view's "
+        f"instances of {statics.capacity}): {outs}; graph calls {calls}; launches {launched}")
+    step_mod._GRAPHS.clear()
+    # the second call captures the graph and replays it, the third replays
+    if calls != {"eager": 1, "captures": 1, "replays": 2}:
+        fail(f"train_step_4d's graph calls are {calls}, not an eager call, a capture and two "
+             f"replays")
+    if launched != {"slice4d_fwd": 12, "slice4d_bwd": 12}:
+        fail(f"the slicing kernels launched {launched} times in 3 steps of 4 views, not 12")
+    if any(nan or not math.isfinite(loss) or n > statics.capacity for loss, nan, n in outs):
+        fail("train_step_4d gave a non-finite loss, a NaN or an overflow")
+    del model, state, params, mask, gts
+    torch.cuda.empty_cache()
+    return [{"name": k, "route": "cuda", "source": f"ex4dgs_tpu_torch/csrc/{k}.cu",
+             "replaces": None, "launches": launched[k], "rows": P, "max_rel_err": worst[k],
+             "ms": ms[k], "plain_ms": plain_ms[k], "bound_ms": bound[k], "bound_by": "bytes",
+             "bytes": moved[k], "library_ms": None} for k in ms]
+
+
+def slice4d_alone() -> int:
+    """Phase 18 alone (`python3 chip_smoke.py --only 18`): the kernels
+    built, then the slicing kernel pair and its kernels line."""
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures the port on a GPU")
+    from ex4dgs_tpu_torch import kernels
+
+    card = card_line()
+    kernels.load_all()
+    t0 = time.perf_counter()
+    out = slice4d_phase(torch.device("cuda"), card)
+    log(f"# phase 18 {time.perf_counter() - t0:.1f} s")
+    print(card, flush=True)
+    print(json.dumps({"kernels": out}), flush=True)
+    return 0
+
+
 def pipeline_alone() -> int:
     """This slice's phases alone (`python3 chip_smoke.py --only 12`): the
     kernels built, phase 8 on the bench frame (the step's time, profile and
@@ -3077,6 +3296,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     benched = bench_phase(dev, card)
     phase_done(17)
+    torch.cuda.empty_cache()
+    slicing = slice4d_phase(dev, card)
+    phase_done(18)
     log("# phase times (s): " + ", ".join(f"{n} {t:.1f}" for n, t in phase_s)
         + f"; total {sum(t for _, t in phase_s):.1f}")
 
@@ -3134,7 +3356,7 @@ def main() -> int:
         **sub["composite_bwd"],
         **multi["composite_bwd"],
         **benched["composite_bwd"],
-    }, *probe_entries]}), flush=True)
+    }, *probe_entries, *slicing]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -3182,5 +3404,5 @@ def multi_gpu_alone() -> int:
 
 if __name__ == "__main__":
     only = {("--only", "12"): pipeline_alone, ("--only", "16"): multi_gpu_alone,
-            ("--only", "17"): bench_alone}
+            ("--only", "17"): bench_alone, ("--only", "18"): slice4d_alone}
     sys.exit(only.get(tuple(sys.argv[1:]), main)())

@@ -45,6 +45,8 @@ SOURCES = {
     "composite_bwd": ("composite_bwd",),
     "probe_unaligned": ("probe_unaligned",),
     "probe_outspec": ("outspec_a", "outspec_b", "outspec_c", "outspec_d", "outspec_e"),
+    "slice4d_fwd": ("slice4d_fwd",),
+    "slice4d_bwd": ("slice4d_bwd",),
 }
 launches: dict[str, int] = {fn: 0 for fns in SOURCES.values() for fn in fns}
 _tallies: list[dict[str, int]] = []  # launches of the graphs being captured
@@ -70,6 +72,12 @@ _SIGNATURES = {
     "outspec_c": [_P, _I, _P],  # accum, num_tiles, stream
     "outspec_d": [_P, _P, _P, _P, _P, _I, _P],  # gacc, a1, a2, a3, out, num_tiles, stream
     "outspec_e": [_P, _P, _I, _P],  # gin, out, num_tiles, stream
+    # 9 params, mask, t, campos, degree, degree_t, P, bands, span, mean, cov,
+    # alpha, rgb, live, stream
+    "slice4d_fwd": [_P] * 14 + [ctypes.c_longlong, _I, ctypes.c_float] + [_P] * 6,
+    # 9 params, t, campos, degree, degree_t, 4 cotangents, P, bands, span,
+    # 9 gradients, stream
+    "slice4d_bwd": [_P] * 17 + [ctypes.c_longlong, _I, ctypes.c_float] + [_P] * 10,
 }
 _locks = {name: threading.Lock() for name in SOURCES}
 
@@ -78,7 +86,8 @@ PROBE_ROWS, PROBE_WINDOW = 16, 256
 OUTSPEC_PIX = 512
 
 
-_C_TYPES = {"const void*": _P, "void*": _P, "long long": ctypes.c_longlong, "int": _I}
+_C_TYPES = {"const void*": _P, "void*": _P, "long long": ctypes.c_longlong, "int": _I,
+            "float": ctypes.c_float}
 
 
 def declared_signature(source: str, entry: str) -> list[tuple[str, object]]:
@@ -431,3 +440,72 @@ def outspec_e(gin: torch.Tensor) -> torch.Tensor:
     out = torch.empty((num_tiles, 16, OUTSPEC_PIX), dtype=torch.float32, device=dev)
     _launch("probe_outspec", "outspec_e", dev, gin.data_ptr(), out.data_ptr(), num_tiles)
     return out
+
+
+def _slice4d_inputs(params, t, campos, degree, degree_t):
+    """Check the slicing kernels' common inputs: the nine parameters
+    (xyz [P, 3], t [P, 1], scaling [P, 3], scaling_t [P, 1], rotation and
+    rotation_r [P, 4], opacity [P, 1], f_dc [P, 1, 3], f_rest [P, 16 B - 1,
+    3] for B time bands, 1 to 3) in float32 on one CUDA device, contiguous,
+    the quaternions 16-byte aligned; t f32 [], campos f32 [3], the degrees
+    i32 []. Returns (device, P, bands)."""
+    dev = params[0].device
+    P = params[0].shape[0] if params[0].dim() == 2 else -1
+    rows = params[8].shape[1] + 1 if params[8].dim() == 3 else -1
+    if rows % 16 or not 1 <= rows // 16 <= 3:
+        raise ValueError(f"f_rest has {rows - 1} rows; the kernels take 16 B - 1 for B in 1..3")
+    shapes = ((P, 3), (P, 1), (P, 3), (P, 1), (P, 4), (P, 4), (P, 1), (P, 1, 3), (P, rows - 1, 3))
+    for name, x, shape in zip(("xyz", "t", "scaling", "scaling_t", "rotation", "rotation_r",
+                               "opacity", "f_dc", "f_rest"), params, shapes):
+        _check(name, x, torch.float32, shape, dev)
+    for name, x in (("rotation", params[4]), ("rotation_r", params[5])):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (one float4 a Gaussian)")
+    _check("t (time)", t, torch.float32, (), dev)
+    _check("campos", campos, torch.float32, (3,), dev)
+    _check("degree", degree, torch.int32, (), dev)
+    _check("degree_t", degree_t, torch.int32, (), dev)
+    if dev.type != "cuda":
+        raise ValueError(f"the slicing kernels run on CUDA tensors, got {dev}")
+    return dev, P, rows // 16
+
+
+def slice4d_fwd(*args, span: float):
+    """Launch csrc/slice4d_fwd.cu: args are the nine parameters (see
+    `_slice4d_inputs`), mask bool [P], t, campos, degree, degree_t. Returns
+    (mean f32 [P, 3], cov3d f32 [P, 6], alpha f32 [P], rgb f32 [P, 3], live
+    bool [P]), computed on the current stream (ops/slice4d.py has the
+    equations). Raises on anything the kernel does not take, and when the
+    launch fails."""
+    params, (mask, t, campos, degree, degree_t) = args[:9], args[9:]
+    dev, P, bands = _slice4d_inputs(params, t, campos, degree, degree_t)
+    _check("mask", mask, torch.bool, (P,), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = (torch.empty((P, 3), **f32), torch.empty((P, 6), **f32), torch.empty((P,), **f32),
+           torch.empty((P, 3), **f32), torch.empty((P,), dtype=torch.bool, device=dev))
+    if P == 0:
+        return out
+    _launch("slice4d_fwd", "slice4d_fwd", dev, *(x.data_ptr() for x in params), mask.data_ptr(),
+            t.data_ptr(), campos.data_ptr(), degree.data_ptr(), degree_t.data_ptr(), P, bands,
+            float(span), *(x.data_ptr() for x in out))
+    return out
+
+
+def slice4d_bwd(*args, span: float):
+    """Launch csrc/slice4d_bwd.cu: args are the nine parameters, t, campos,
+    degree, degree_t and the cotangents of mean f32 [P, 3], cov3d [P, 6],
+    alpha [P] and rgb [P, 3]. Returns the nine parameters' gradients, shaped
+    as they are, computed on the current stream."""
+    params, (t, campos, degree, degree_t), cots = args[:9], args[9:13], args[13:]
+    dev, P, bands = _slice4d_inputs(params, t, campos, degree, degree_t)
+    for name, x, shape in zip(("g_mean", "g_cov", "g_alpha", "g_rgb"), cots,
+                              ((P, 3), (P, 6), (P,), (P, 3))):
+        _check(name, x, torch.float32, shape, dev)
+    grads = tuple(torch.empty_like(x, memory_format=torch.contiguous_format) for x in params)
+    if P == 0:
+        return grads
+    _launch("slice4d_bwd", "slice4d_bwd", dev, *(x.data_ptr() for x in params), t.data_ptr(),
+            campos.data_ptr(), degree.data_ptr(), degree_t.data_ptr(),
+            *(x.data_ptr() for x in cots), P, bands, float(span),
+            *(x.data_ptr() for x in grads))
+    return grads

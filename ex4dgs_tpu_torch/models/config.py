@@ -104,6 +104,43 @@ class OptimizationConfig:
     random_background: bool = True
 
 
+@dataclasses.dataclass(frozen=True)
+class Model4DConfig:
+    """4D Gaussian Splatting's model (Yang et al., ICLR 2024; its dynerf
+    configs): SH degree in space and in time, the time span the harmonics'
+    period is taken over, the projection's frustum and 2D dilation."""
+
+    sh_degree: int = 3
+    sh_degree_t: int = 2
+    time_duration: tuple = (0.0, 10.0)  # (start, end) in seconds
+    near: float = 0.2
+    far: float = 100.0
+    dilation: float = 0.3  # added to the 2D covariance's diagonal, no compensation
+
+    @property
+    def time_span(self) -> float:
+        return float(self.time_duration[1]) - float(self.time_duration[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimization4DConfig:
+    """4D Gaussian Splatting's training recipe (the dynerf configs): L1 +
+    SSIM over a batch of views a step (the caller's), Adam with the
+    per-group rates below (t on the position schedule)."""
+
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30_000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    lambda_dssim: float = 0.2
+    densify_until_iter: int = 15_000
+    adam_eps: float = 1e-15
+
+
 def overlay_json(cfg: Any, json_path_or_dict) -> Any:
     """Overlay JSON keys onto a frozen dataclass, skipping unknown keys."""
     if isinstance(json_path_or_dict, str):

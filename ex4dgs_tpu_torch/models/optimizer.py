@@ -1,4 +1,6 @@
-"""RAdam with per-parameter-group learning rates, and the LR schedules.
+"""RAdam with per-parameter-group learning rates, and the LR schedules;
+Adam and the rates of 4D Gaussian Splatting's recipe (`adam_update`,
+`fourdgs_lrs`), whose moments are kept in the same state (`RAdamState`).
 
 Counterpart of `ex4dgs_tpu/models/optimizer.py`: the same update as
 torch.optim.RAdam (betas (0.9, 0.999), eps 1e-8, no weight decay), written
@@ -15,7 +17,7 @@ import math
 import torch
 
 from .. import resolve_device
-from .config import OptimizationConfig
+from .config import Optimization4DConfig, OptimizationConfig
 from .state import GaussianModel
 
 BETA1 = 0.9
@@ -120,6 +122,41 @@ def radam_update(params: dict, grads: dict, state: RAdamState, lrs: dict):
         # or a 0-d tensor on the params' device, whose value a CUDA graph
         # of the step reads at each replay
         new_params[k] = p - lrs[k] * update
+        new_mu[k] = mu
+        new_nu[k] = nu
+    return new_params, RAdamState(mu=new_mu, nu=new_nu, step=state.step + 1)
+
+
+def fourdgs_lrs(opt: Optimization4DConfig, spatial_lr_scale: float, iteration) -> dict:
+    """Learning rate of each of 4D Gaussian Splatting's groups at
+    `iteration`: the means' xyz and t on the position schedule, the
+    features, opacity, both scalings and both quaternions at fixed rates."""
+    xyz = expon_lr(iteration, opt.position_lr_init * spatial_lr_scale,
+                   opt.position_lr_final * spatial_lr_scale,
+                   lr_delay_mult=opt.position_lr_delay_mult, max_steps=opt.position_lr_max_steps)
+    return {"xyz": xyz, "t": xyz, "scaling": opt.scaling_lr, "scaling_t": opt.scaling_lr,
+            "rotation": opt.rotation_lr, "rotation_r": opt.rotation_lr,
+            "opacity": opt.opacity_lr, "f_dc": opt.feature_lr, "f_rest": opt.feature_lr / 20.0}
+
+
+def adam_update(params: dict, grads: dict, state: RAdamState, lrs: dict, eps: float):
+    """One Adam step (torch.optim.Adam's: betas (0.9, 0.999), no weight
+    decay, bias-corrected); returns (new params, new state). lrs as
+    radam_update takes them."""
+    t = (state.step + 1).to(torch.float32)
+    bias1 = 1.0 - torch.pow(torch.full((), BETA1, dtype=torch.float32, device=t.device), t)
+    bias2 = 1.0 - torch.pow(torch.full((), BETA2, dtype=torch.float32, device=t.device), t)
+    root2 = torch.sqrt(bias2)
+    new_params, new_mu, new_nu = {}, {}, {}
+    for k, p in params.items():
+        g = grads[k]
+        mu = BETA1 * state.mu[k] + (1.0 - BETA1) * g
+        nu = BETA2 * state.nu[k] + (1.0 - BETA2) * (g * g)
+        # a host rate becomes the float32 a staged one holds (a float over
+        # a tensor would be the tensor's reciprocal times the float)
+        lr = lrs[k] if isinstance(lrs[k], torch.Tensor) else torch.tensor(lrs[k],
+                                                                          dtype=torch.float32)
+        new_params[k] = p - (lr / bias1) * (mu / (torch.sqrt(nu) / root2 + eps))
         new_mu[k] = mu
         new_nu[k] = nu
     return new_params, RAdamState(mu=new_mu, nu=new_nu, step=state.step + 1)

@@ -79,12 +79,13 @@ def cov3d_from_scaling_rotation(scaling: torch.Tensor, rotation: torch.Tensor,
 
 
 def ewa_project_cov(mean_cam, cov3d, view_rot, focal_x, focal_y, tan_fovx,
-                    tan_fovy, kernel_size: float):
+                    tan_fovy, kernel_size: float, compensate: bool = True):
     """EWA 2D covariance with the low-pass dilation.
 
     Returns (cov2d [..., 3] = dilated (a, b, c), coef [...] = the opacity
-    compensation sqrt(det0/det1), 0 where degenerate). Includes the
-    1.3*tanfov clamp of the Jacobian's linearization point."""
+    compensation sqrt(det0/det1), 0 where degenerate; with compensate False,
+    3DGS's dilation alone, coef 1). Includes the 1.3*tanfov clamp of the
+    Jacobian's linearization point."""
     tx, ty, tz = mean_cam[..., 0], mean_cam[..., 1], mean_cam[..., 2]
     limx = 1.3 * tan_fovx
     limy = 1.3 * tan_fovy
@@ -119,6 +120,10 @@ def ewa_project_cov(mean_cam, cov3d, view_rot, focal_x, focal_y, tan_fovx,
         t10 * t10 * vxx + t11 * t11 * vyy + t12 * t12 * vzz
         + 2.0 * (t10 * t11 * vxy + t10 * t12 * vxz + t11 * t12 * vyz)
     )
+    if not compensate:
+        return torch.stack([a + kernel_size, b, c + kernel_size], dim=-1), torch.ones_like(a)
+    # the compensated path's operations stay in this order: autograd sums a
+    # tensor's gradients in the order its uses were recorded
     det0 = torch.clamp_min(a * c - b * b, 1e-6)
     det1 = torch.clamp_min((a + kernel_size) * (c + kernel_size) - b * b, 1e-6)
     coef = torch.sqrt(det0 / (det1 + 1e-6) + 1e-6)

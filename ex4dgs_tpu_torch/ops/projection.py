@@ -58,9 +58,12 @@ def project_gaussians(means3d, cov3d, opacities, cam: CameraArrays, *, width: in
                       height: int, tan_fovx, tan_fovy, kernel_size: float,
                       min_depth: float = 0.2, max_depth: float = 100.0,
                       mean2d_ndc_offset=None, tile_x: int = 32,
-                      tile_y: int = 16) -> Projected:
+                      tile_y: int = 16, compensate: bool = True) -> Projected:
     """Project Gaussians to screen space. `mean2d_ndc_offset` (zeros [P,3])
-    is added to the NDC mean, the hook whose gradient trains densification."""
+    is added to the NDC mean, the hook whose gradient trains densification.
+    compensate False dilates the 2D covariance by kernel_size without
+    scaling the opacity (3DGS's rasterizer); True is Ex4DGS's compensated
+    low-pass filter."""
     focal_x = width / (2.0 * tan_fovx)
     focal_y = height / (2.0 * tan_fovy)
     mx, my, mz = means3d[:, 0], means3d[:, 1], means3d[:, 2]
@@ -89,7 +92,7 @@ def project_gaussians(means3d, cov3d, opacities, cam: CameraArrays, *, width: in
 
     p_view = torch.stack([affine(cam.view[0]), affine(cam.view[1]), p_view_z], -1)
     cov2d, coef = ewa_project_cov(p_view, cov3d, cam.view[:3, :3], focal_x, focal_y,
-                                  tan_fovx, tan_fovy, kernel_size)
+                                  tan_fovx, tan_fovy, kernel_size, compensate)
     a, b, c = cov2d[:, 0], cov2d[:, 1], cov2d[:, 2]
     det = a * c - b * b
     det_ok = det > 0.0

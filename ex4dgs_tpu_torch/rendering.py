@@ -5,6 +5,9 @@ bg=...)` returns the same outputs: color, depth, optical flow, accumulated
 alpha, dominant-contributor index, per-splat radii and visibility. The
 compositor is chosen by the device of the tensors: on CUDA the
 forward-compositing kernel runs, on the CPU its plain version.
+`render4d(cam, model4d, cfg, t=..., bg=...)` renders the second model
+family, 4D Gaussian Splatting (Yang et al.), through the same projection,
+binning and compositing.
 """
 from __future__ import annotations
 
@@ -17,14 +20,16 @@ import torch
 
 from . import resolve_device, upload
 from .kernel_config import KernelConfig
-from .models.config import ModelConfig
+from .models.config import Model4DConfig, ModelConfig
 from .models.state import GaussianModel
+from .models.state4d import Gaussian4DModel
 from .models.temporal import PointData, point_data_at_t
 from .ops import binning as binning_ops
 from .ops.math3d import cov3d_from_scaling_rotation, sh_to_rgb
 from .ops.projection import CameraArrays, Projected, project_gaussians, tile_grid
 from .ops import compositing as comp
 from .ops.rasterize_cuda import composite_blocks, rasterize_tiled_cuda
+from .ops.slice4d import slice4d
 from .parallel import collectives
 from .runtime.profiling import span
 
@@ -132,17 +137,22 @@ def preprocess_points(pts: PointData, cam: RenderCamera, cfg: ModelConfig, *, ne
                              mean2d_ndc_offset=mean2d_offset, tile_x=kcfg.tile_x,
                              tile_y=kcfg.tile_y)
     # Capacity-padding mask: inactive rows are simply invalid.
-    zero_i = torch.zeros_like(proj.tiles_touched)
-    proj = proj._replace(
-        valid=proj.valid & pts.mask,
-        tiles_touched=torch.where(pts.mask, proj.tiles_touched, zero_i),
-        radius=torch.where(pts.mask, proj.radius, zero_i),
-    )
+    proj = _masked(proj, pts.mask)
     if override_color is not None:
         colors = override_color
     else:
         colors = sh_to_rgb(3, pts.features, pts.means3d, cam.campos)
     return proj, colors
+
+
+def _masked(proj: Projected, mask) -> Projected:
+    """proj with the rows outside `mask` invalid: no tiles, radius 0."""
+    zero_i = torch.zeros_like(proj.tiles_touched)
+    return proj._replace(
+        valid=proj.valid & mask,
+        tiles_touched=torch.where(mask, proj.tiles_touched, zero_i),
+        radius=torch.where(mask, proj.radius, zero_i),
+    )
 
 
 def composite_projected(proj: Projected, colors, flow_dirs, cam: RenderCamera, *, bg,
@@ -288,6 +298,44 @@ def render(cam: RenderCamera, model: GaussianModel, cfg: ModelConfig, *, t, bg,
         with span("ex4dgs.temporal"):
             pts = point_data_at_t(model, cfg, t, mode=mode)
         return render_points(pts, cam, cfg, bg=bg, device=dev, **kwargs)
+
+
+def render4d(cam: RenderCamera, model: Gaussian4DModel, cfg: Model4DConfig, *, t, bg,
+             capacity: int | None = None, mean2d_offset=None,
+             kernel_cfg: KernelConfig | None = None, device=None) -> RenderResult:
+    """Render a 4D Gaussian Splatting model (Yang et al.) at time t (seconds;
+    a host number or a 0-d tensor on the device) on `device` (cuda unless
+    told otherwise; model and camera must already be there): slice the 4D
+    Gaussians at t and colour them by their 4D harmonics
+    (`ops/slice4d.py`), project them with 3DGS's uncompensated dilation
+    (`cfg.dilation`), then bin and composite as `render` does. Gaussians
+    whose marginal in t is at most 0.05, or outside the mask, are invalid:
+    they touch no tile, and nothing is compacted, so every shape is fixed.
+    Reads nothing back to the host."""
+    with span("ex4dgs.render"):
+        dev = resolve_device(device)
+        _on(dev, "the model", model.params["xyz"])
+        _on(dev, "the camera", cam.view)
+        kcfg = (kernel_cfg or KernelConfig()).validate()
+        P = model.capacity
+        if capacity is None:
+            capacity = default_capacity(P, cam.width, cam.height, kcfg)
+        bg = upload(bg, dev, torch.float32)
+        with span("ex4dgs.slice4d"):
+            means, cov3d, alpha, rgb, live = slice4d(
+                model.params, model.mask, t, cam.campos, model.active_sh_degree,
+                model.active_sh_degree_t, span=cfg.time_span)
+        with span("ex4dgs.preprocess"):
+            proj = project_gaussians(means, cov3d, alpha, cam.arrays, width=cam.width,
+                                     height=cam.height, tan_fovx=cam.tan_fovx,
+                                     tan_fovy=cam.tan_fovy, kernel_size=cfg.dilation,
+                                     min_depth=cfg.near, max_depth=cfg.far,
+                                     mean2d_ndc_offset=mean2d_offset, tile_x=kcfg.tile_x,
+                                     tile_y=kcfg.tile_y, compensate=False)
+            proj = _masked(proj, live)
+        flow = torch.zeros((P, 3), dtype=torch.float32, device=dev)
+        return composite_projected(proj, rgb, flow, cam, bg=bg, far=cfg.far, capacity=capacity,
+                                   track_idx=False, kernel_cfg=kcfg)
 
 
 def default_capacity(num_points: int, width: int, height: int,

@@ -32,6 +32,12 @@ written back into their tensors), eagerly and in the graph alike, so the
 state is never held twice; the small outputs are fresh tensors each call.
 One graph is kept per device: a new key releases the old graph and its
 memory. On the CPU the step runs eagerly and returns new state.
+
+`train_step_4d` is the step of the second model family, 4D Gaussian
+Splatting (Yang et al.): a batch of views, each rendered at its own time,
+the mean of their losses, one backward and Adam. It runs as one CUDA graph
+through the same machinery (`_run_graphed`, `_capture`, `_stage_scalars`),
+its key (`_graph_key_4d`) holding the number and sizes of the views.
 """
 from __future__ import annotations
 
@@ -42,11 +48,13 @@ import torch
 
 from .. import kernels, resolve_device, scalar_on, upload
 from ..kernel_config import KernelConfig
-from ..models.config import ModelConfig, OptimizationConfig
-from ..models.optimizer import RAdamState, group_lrs, mask_grads, radam_update, scrub_nan
+from ..models.config import Model4DConfig, ModelConfig, Optimization4DConfig, OptimizationConfig
+from ..models.optimizer import (RAdamState, adam_update, fourdgs_lrs, group_lrs, mask_grads,
+                                radam_update, scrub_nan)
 from ..models.state import GaussianModel
-from ..ops.losses import l1_loss, psnr, ssim
-from ..rendering import RenderCamera, RenderResult, render
+from ..models.state4d import Gaussian4DModel
+from ..ops.losses import combined_loss, l1_loss, psnr, ssim
+from ..rendering import RenderCamera, RenderResult, render, render4d
 from ..runtime.profiling import span
 
 
@@ -343,8 +351,9 @@ class _Graph:
     def __init__(self, key: tuple):
         self.key = key
         self.graph = None
-        self.cam = self.gt = self.bg = self.scalars = None
-        self.out: StepOutputs | None = None
+        self.inputs: list[torch.Tensor] | None = None
+        self.scalars: torch.Tensor | None = None
+        self.out = None
         self.launches: dict[str, int] = {}
 
 
@@ -371,83 +380,253 @@ def _graph_key(model, opt_state, cam, gt, bg, iteration, statics) -> tuple:
             _state_key(model), _state_key(opt_state))
 
 
-def _stage_scalars(t, lrs: dict, out: torch.Tensor) -> torch.Tensor:
-    """out [1 + len(lrs)] on the device <- t and the rates, in float32 (the
-    host values' bits as the eager kernels would round them): one pinned copy
-    that does not block, and a copy of t on the device where t is there."""
-    on_device = isinstance(t, torch.Tensor) and t.device.type != "cpu"
-    host = torch.tensor([0.0 if on_device else float(t), *(float(v) for v in lrs.values())],
-                        dtype=torch.float32)
+def _stage_scalars(ts, lrs: dict, out: torch.Tensor) -> torch.Tensor:
+    """out [len(ts) + len(lrs)] on the device <- the times ts (one t, or a
+    list of them) and the rates, in float32 (the host values' bits as the
+    eager kernels would round them): one pinned copy that does not block,
+    and a copy on the device of each t that is there."""
+    ts = list(ts) if isinstance(ts, (list, tuple)) else [ts]
+    on_device = [isinstance(t, torch.Tensor) and t.device.type != "cpu" for t in ts]
+    host = torch.tensor([0.0 if dev_t else float(t) for t, dev_t in zip(ts, on_device)]
+                        + [float(v) for v in lrs.values()], dtype=torch.float32)
     upload(host, out.device, out=out)
-    if on_device:
-        out[0].copy_(t)
+    for i, (t, dev_t) in enumerate(zip(ts, on_device)):
+        if dev_t:
+            out[i].copy_(t)
     return out
 
 
-def _rates(scalars: torch.Tensor, lrs: dict) -> dict:
-    return {name: scalars[i] for i, name in enumerate(lrs, 1)}
+def _rates(scalars: torch.Tensor, lrs: dict, first: int = 1) -> dict:
+    """The rates as staged after the `first` times."""
+    return {name: scalars[i] for i, name in enumerate(lrs, first)}
+
+
+def _card(dev: torch.device) -> torch.device:
+    """dev with its index: the graphs are kept per card."""
+    return torch.device("cuda", torch.cuda.current_device()) if dev.index is None else dev
 
 
 def _graphed_step(model, opt_state, cam, gt, t, bg, iteration: int, lrs: dict,
                   statics: StepStatics, dev: torch.device) -> StepOutputs:
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    dev = _card(dev)
     key = _graph_key(model, opt_state, cam, gt, bg, iteration, statics)
-    g = _GRAPHS.get(dev)
-    if g is None or g.key != key:
-        _GRAPHS.pop(dev, None)  # releases the old graph and its pool
-        scalars = _stage_scalars(t, lrs, torch.empty(1 + len(lrs), device=dev))
-        out = _step(model, opt_state, cam, gt, scalars[0], scalars[0], bg, iteration,
-                    _rates(scalars, lrs), statics, dev, in_place=True)
-        _GRAPHS[dev] = _Graph(key)
-        kernels.count_graph_call(dev, "eager")
-        return out
-    with span("ex4dgs.graph.stage"):
-        if g.graph is None:
-            g.cam = dataclasses.replace(cam, **{f: torch.empty_like(getattr(cam, f))
-                                                for f in _CAMERA_TENSORS})
-            g.gt, g.bg = torch.empty_like(gt), torch.empty_like(bg)
-            g.scalars = torch.empty(1 + len(lrs), device=dev)
-        for f in _CAMERA_TENSORS:
-            getattr(g.cam, f).copy_(getattr(cam, f))
-        g.gt.copy_(gt)
-        g.bg.copy_(bg)
-        _stage_scalars(t, lrs, g.scalars)
-    if g.graph is None:
-        _capture(g, model, opt_state, iteration, lrs, statics, dev)
-    with span("ex4dgs.graph.replay"):
-        g.graph.replay()
-        kernels.replayed(g.launches)
-        kernels.count_graph_call(dev, "replays")
-        o = g.out
+
+    def body(inputs, scalars):
+        c = dataclasses.replace(cam, **dict(zip(_CAMERA_TENSORS, inputs)))
+        return _step(model, opt_state, c, inputs[-2], scalars[0], scalars[0], inputs[-1],
+                     iteration, _rates(scalars, lrs), statics, dev, in_place=True)
+
+    def small(o: StepOutputs) -> StepOutputs:
         return StepOutputs(model=model, opt_state=opt_state, loss=o.loss.clone(),
                            ll1=o.ll1.clone(), psnr=o.psnr.clone(),
                            visibility=o.visibility.clone(),
                            binning_total=o.binning_total.clone(), nan_flag=o.nan_flag.clone())
 
+    inputs = [getattr(cam, f) for f in _CAMERA_TENSORS] + [gt, bg]
+    return _run_graphed(dev, key, inputs, [t], lrs, body, small)
 
-def _capture(g: _Graph, model, opt_state, iteration: int, lrs: dict, statics: StepStatics,
-             dev: torch.device) -> None:
-    """Capture the step on g's static inputs and the caller's state, on a
-    side stream ordered after the current one by events: no synchronize,
-    so the capture reads nothing back either. Nothing runs until a replay."""
+
+def _run_graphed(dev: torch.device, key: tuple, inputs: list, ts: list, lrs: dict, body, small):
+    """A step as one CUDA graph on the card `dev`, shared by train_step and
+    train_step_4d. body(inputs, scalars) runs the step's work on the input
+    tensors (the caller's, or the graph's static copies of them) and the
+    staged scalars (`_stage_scalars` of ts and lrs), updating the state in
+    place, and returns its outputs; small(outputs) gives a replay's result
+    from the captured outputs. The first call with a key runs body eagerly,
+    the second captures it and replays, later calls stage and replay."""
+    g = _GRAPHS.get(dev)
+    if g is None or g.key != key:
+        _GRAPHS.pop(dev, None)  # releases the old graph and its pool
+        scalars = _stage_scalars(ts, lrs, torch.empty(len(ts) + len(lrs), device=dev))
+        out = body(inputs, scalars)
+        _GRAPHS[dev] = _Graph(key)
+        kernels.count_graph_call(dev, "eager")
+        return out
+    with span("ex4dgs.graph.stage"):
+        if g.graph is None:
+            g.inputs = [torch.empty_like(x) for x in inputs]
+            g.scalars = torch.empty(len(ts) + len(lrs), device=dev)
+        for static, x in zip(g.inputs, inputs):
+            static.copy_(x)
+        _stage_scalars(ts, lrs, g.scalars)
+    if g.graph is None:
+        _capture(g, dev, lambda: body(g.inputs, g.scalars))
+    with span("ex4dgs.graph.replay"):
+        g.graph.replay()
+        kernels.replayed(g.launches)
+        kernels.count_graph_call(dev, "replays")
+        return small(g.out)
+
+
+def _capture(g: _Graph, dev: torch.device, run) -> None:
+    """Capture run() (the step on g's static inputs and the caller's state)
+    on a side stream ordered after the current one by events: no
+    synchronize, so the capture reads nothing back either. Nothing runs
+    until a replay. g keeps the outputs but the state, which is the
+    caller's."""
     if dev not in _CAPTURE_STREAMS:
         _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
     stream = _CAPTURE_STREAMS[dev]
     current = torch.cuda.current_stream(dev)
     stream.wait_stream(current)
     graph = torch.cuda.CUDAGraph()
-    t_dev = g.scalars[0]
     with torch.cuda.device(dev), torch.cuda.stream(stream), kernels.capturing() as tally:
         # thread_local: another thread's CUDA calls (the trainer's prefetcher)
         # may go on while this one captures
         graph.capture_begin(capture_error_mode="thread_local")
         try:
-            out = _step(model, opt_state, g.cam, g.gt, t_dev, t_dev, g.bg, iteration,
-                        _rates(g.scalars, lrs), statics, dev, in_place=True)
+            out = run()
         finally:
             graph.capture_end()
     current.wait_stream(stream)
     g.graph, g.launches = graph, tally
     g.out = out._replace(model=None, opt_state=None)
     kernels.count_graph_call(dev, "captures")
+
+
+# ---------------------------------------------------------------------------
+# 4D Gaussian Splatting (Yang et al.): a batch of views, Adam
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Step4DStatics:
+    """train_step_4d's fixed configuration."""
+
+    cfg: Model4DConfig
+    opt: Optimization4DConfig
+    spatial_lr_scale: float
+    capacity: int  # binning instance-buffer capacity of each view
+    kernel: KernelConfig | None = None  # tile shape and sort (default 32x16)
+
+
+class Step4DOutputs(NamedTuple):
+    model: Gaussian4DModel
+    opt_state: RAdamState  # Adam's moments and step
+    loss: torch.Tensor  # [] the mean of the views' losses
+    visibility: torch.Tensor  # [P] bool: visible in some view
+    binning_total: torch.Tensor  # [] int32: the largest view's instance count
+    nan_flag: torch.Tensor  # [] bool: NaN in the new xyz
+
+
+def _update_stats_4d(model: Gaussian4DModel, radii, m2d_grad, densify: bool) -> Gaussian4DModel:
+    """The densification statistics of one batch: where a Gaussian was
+    visible in some view, its largest screen radius over the views, the
+    norm of its screen-space mean's gradient summed over the views, and a
+    count of one."""
+    stats = dict(model.stats)
+    radius = torch.stack(radii).amax(0).to(torch.float32)
+    on = (radius > 0) & model.mask
+    if not densify:
+        on = torch.zeros_like(on)
+    zero = torch.zeros((), device=radius.device)
+    stats["max_radii2D"] = torch.where(on, torch.maximum(stats["max_radii2D"], radius),
+                                       stats["max_radii2D"])
+    stats["xyz_gradient_accum"] = stats["xyz_gradient_accum"] + torch.where(
+        on, torch.linalg.norm(m2d_grad[:, :2], dim=-1), zero)
+    stats["denom"] = stats["denom"] + torch.where(on, torch.ones((), device=radius.device), zero)
+    return model.replace(stats=stats)
+
+
+def _step4d(model: Gaussian4DModel, opt_state: RAdamState, cams: list, gts: list, ts: list, bg,
+            iteration: int, lrs: dict, statics: Step4DStatics, dev,
+            in_place: bool) -> Step4DOutputs:
+    """train_step_4d's work on `dev`, run eagerly or under a graph's
+    capture: ts and lrs as render4d and adam_update take them."""
+    params = {k: v.detach().requires_grad_(True) for k, v in model.params.items()}
+    # one screen-space hook for every view: its gradient is the views' sum
+    mean2d_offset = torch.zeros((model.capacity, 3), device=dev, requires_grad=True)
+    current = model.replace(params=params)
+    losses, radii, totals = [], [], []
+    for cam, gt, t in zip(cams, gts, ts):
+        res = render4d(cam, current, statics.cfg, t=t, bg=bg, capacity=statics.capacity,
+                       mean2d_offset=mean2d_offset, kernel_cfg=statics.kernel, device=dev)
+        with span("ex4dgs.loss"):
+            losses.append(combined_loss(res.render, gt, statics.opt.lambda_dssim)[0])
+        radii.append(res.radii)
+        totals.append(res.binning_total)
+    loss = torch.stack(losses).mean()
+    with span("ex4dgs.backward"):
+        leaves = [*params.values(), mean2d_offset]
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+    with torch.no_grad(), span("ex4dgs.update"):
+        mask = model.mask
+        pgrads = {}
+        for (k, p), g in zip(params.items(), grads):
+            mb = mask.view(-1, *([1] * (p.ndim - 1)))
+            g = torch.where(mb, g, torch.zeros((), device=dev))
+            pgrads[k] = torch.where(torch.isnan(g), torch.zeros((), device=dev), g)
+        new_params, new_state = adam_update(model.params, pgrads, opt_state, lrs,
+                                            statics.opt.adam_eps)
+        new_model = _update_stats_4d(model.replace(params=new_params), radii, grads[-1],
+                                     iteration < statics.opt.densify_until_iter)
+        total = torch.stack(totals).amax()
+        ok = total <= statics.capacity
+        out_model = _select(ok, new_model, model, in_place)
+        out_state = _select(ok, new_state, opt_state, in_place)
+        visible = torch.stack(radii).amax(0) > 0
+    return Step4DOutputs(model=out_model, opt_state=out_state, loss=loss.detach(),
+                         visibility=visible, binning_total=total,
+                         nan_flag=torch.isnan(out_model.params["xyz"]).any())
+
+
+def train_step_4d(model: Gaussian4DModel, adam_state: RAdamState, cams, gts, ts, bg, iteration,
+                  statics: Step4DStatics, device=None) -> Step4DOutputs:
+    """One iteration of 4D Gaussian Splatting's recipe on the views
+    (cams[i], gts[i] [H, W, 3], ts[i] in seconds), all of one size: each
+    view rendered at its own time (`render4d`), the mean of the views'
+    (1 - l) L1 + l (1 - SSIM) losses, one backward, Adam over every group
+    at its scheduled rate (inactive rows' and NaN gradients zeroed), and
+    the batch's densification statistics. A step in which some view's
+    binning overflowed the capacity leaves model and Adam state as they
+    were (the gate is on the device: nothing is read back to the host).
+
+    On CUDA it is one CUDA graph, as train_step, through the same
+    machinery (`_run_graphed`): the state passed in is updated in place and
+    returned; the views' cameras and images, bg, the times and the rates
+    are staged into the graph's inputs. On the CPU it runs eagerly and
+    returns new state."""
+    with span("ex4dgs.train_step"):
+        dev = resolve_device(device)
+        iteration = int(iteration)
+        cams, gts, ts = list(cams), list(gts), list(ts)
+        if not len(cams) == len(gts) == len(ts) > 0:
+            raise ValueError(f"{len(cams)} cameras, {len(gts)} images and {len(ts)} times: "
+                             "one of each per view")
+        lrs = fourdgs_lrs(statics.opt, statics.spatial_lr_scale, iteration)
+        bg = upload(bg, dev, torch.float32)
+        if dev.type != "cuda":
+            return _step4d(model, adam_state, cams, gts, ts, bg, iteration, lrs, statics, dev,
+                           in_place=False)
+        dev = _card(dev)
+        key = _graph_key_4d(model, adam_state, cams, gts, bg, iteration, statics)
+        n = len(cams)
+
+        def body(inputs, scalars):
+            k = len(_CAMERA_TENSORS)
+            views = [dataclasses.replace(c, **dict(zip(_CAMERA_TENSORS, inputs[k * i:k * i + k])))
+                     for i, c in enumerate(cams)]
+            images = inputs[k * n:k * n + n]
+            return _step4d(model, adam_state, views, images, [scalars[i] for i in range(n)],
+                           inputs[-1], iteration, _rates(scalars, lrs, first=n), statics, dev,
+                           in_place=True)
+
+        def small(o: Step4DOutputs) -> Step4DOutputs:
+            return Step4DOutputs(model=model, opt_state=adam_state, loss=o.loss.clone(),
+                                 visibility=o.visibility.clone(),
+                                 binning_total=o.binning_total.clone(),
+                                 nan_flag=o.nan_flag.clone())
+
+        inputs = [getattr(c, f) for c in cams for f in _CAMERA_TENSORS] + gts + [bg]
+        return _run_graphed(dev, key, inputs, ts, lrs, body, small)
+
+
+def _graph_key_4d(model, adam_state, cams, gts, bg, iteration, statics) -> tuple:
+    """What a capture of train_step_4d bakes in: the statics, whether the
+    statistics accumulate, the number and sizes of the views, the inputs'
+    shapes and the storage of every tensor of the model and Adam state."""
+    inputs = [getattr(c, f) for c in cams for f in _CAMERA_TENSORS] + list(gts) + [bg]
+    return (statics, iteration < statics.opt.densify_until_iter, len(cams),
+            tuple((c.width, c.height) for c in cams),
+            tuple((x.device, x.dtype, x.shape) for x in inputs),
+            _state_key(model), _state_key(adam_state))

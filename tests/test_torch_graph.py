@@ -5,6 +5,7 @@ where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_graph.py
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -12,8 +13,10 @@ import pytest
 import torch
 
 from ex4dgs_tpu_torch import kernels
-from ex4dgs_tpu_torch.models.config import OptimizationConfig
-from ex4dgs_tpu_torch.models.optimizer import group_lrs, init_state
+from ex4dgs_tpu_torch.kernel_config import KernelConfig
+from ex4dgs_tpu_torch.models import state4d
+from ex4dgs_tpu_torch.models.config import Model4DConfig, Optimization4DConfig, OptimizationConfig
+from ex4dgs_tpu_torch.models.optimizer import fourdgs_lrs, group_lrs, init_state
 from ex4dgs_tpu_torch.ops import interpolation as tint
 from ex4dgs_tpu_torch.rendering import default_capacity, render
 from ex4dgs_tpu_torch.synthetic import make_scene, ring_cameras
@@ -171,6 +174,97 @@ def test_step_as_the_card_stages_it_is_the_cpu_step(overflow):
         assert _same_bits(g[k], w[k]), k
         assert g[k] is m[k], k  # written in place
     for f in SMALL:
+        assert _same_bits(getattr(got, f), getattr(want, f)), f
+    assert (int(got.binning_total) > statics.capacity) == overflow
+    if overflow:
+        for k, v in before.items():
+            assert _same_bits(g[k], v), k
+
+
+def _scene_4d(device, V=4, W=64, H=48):
+    """A 4D Gaussian Splatting model of 400 Gaussians in 512 rows, V views
+    at 16x16 exact sort, the step's statics."""
+    model = state4d.empty_model(Model4DConfig(), 512, device=device)
+    g = torch.Generator().manual_seed(6)
+    P = 400
+    p = model.params
+    p["xyz"][:P] = torch.randn(P, 3, generator=g) * 0.6
+    p["t"][:P] = torch.rand(P, 1, generator=g) * 10
+    p["scaling"][:P] = torch.randn(P, 3, generator=g) * 0.3 - 2.5
+    p["scaling_t"][:P] = torch.randn(P, 1, generator=g) * 0.3
+    p["rotation"][:P] = torch.randn(P, 4, generator=g)
+    p["rotation_r"][:P] = torch.randn(P, 4, generator=g)
+    p["opacity"][:P] = torch.randn(P, 1, generator=g) + 1
+    p["f_dc"][:P] = torch.randn(P, 1, 3, generator=g)
+    p["f_rest"][:P] = torch.randn(P, 47, 3, generator=g) * 0.3
+    model.mask[:P] = True
+    model = model.replace(active_sh_degree=torch.tensor(3, dtype=torch.int32),
+                          active_sh_degree_t=torch.tensor(2, dtype=torch.int32))
+    cams = ring_cameras(V, 3.0, W, H, device=device)
+    gts = [torch.rand((H, W, 3), generator=g).to(device) for _ in cams]
+    kcfg = KernelConfig(tile_x=16, tile_y=16, exact_sort=True)
+    statics = S.Step4DStatics(cfg=Model4DConfig(), opt=Optimization4DConfig(),
+                              spatial_lr_scale=2.0, capacity=default_capacity(512, W, H, kcfg),
+                              kernel=kcfg)
+    return model, cams, gts, statics
+
+
+def test_graph_key_4d_holds_views_shapes_and_the_adam_state():
+    """train_step_4d's key is equal for other images, times and an
+    iteration with the same gate on the same state tensors; another key for
+    fewer views, another view size, copies of the Adam state, the
+    statistics' gate flipped, or other statics."""
+    model, cams, gts, statics = _scene_4d("cpu")
+    state = init_state(model.params, device="cpu")
+    bg = torch.zeros(3)
+    key = S._graph_key_4d(model, state, cams, gts, bg, 10_000, statics)
+    assert key == S._graph_key_4d(model, state, cams[::-1], [torch.rand_like(x) for x in gts],
+                                  torch.ones(3), 10_001, statics)
+    assert key != S._graph_key_4d(model, state, cams[:3], gts[:3], bg, 10_000, statics)
+    small = ring_cameras(1, 3.0, 32, 48, device="cpu")[0]
+    assert key != S._graph_key_4d(model, state, [small, *cams[1:]], gts, bg, 10_000, statics)
+    assert key != S._graph_key_4d(model, init_state(model.params, device="cpu"), cams, gts, bg,
+                                  10_000, statics)
+    assert key != S._graph_key_4d(*S.clone_state(model, state), cams, gts, bg, 10_000, statics)
+    past = statics.opt.densify_until_iter
+    assert key != S._graph_key_4d(model, state, cams, gts, bg, past, statics)
+    bigger = dataclasses.replace(statics, capacity=statics.capacity * 2)
+    assert key != S._graph_key_4d(model, state, cams, gts, bg, 10_000, bigger)
+
+
+def test_stage_scalars_takes_a_time_per_view():
+    lrs = fourdgs_lrs(Optimization4DConfig(), 2.0, 12_000)
+    ts = [0.5, torch.tensor(2.25), 7.0, 9.75]
+    got = S._stage_scalars(ts, lrs, torch.empty(len(ts) + len(lrs)))
+    want = [0.5, 2.25, 7.0, 9.75] + [np.float32(float(v)) for v in lrs.values()]
+    np.testing.assert_array_equal(got.numpy(), np.array(want, np.float32))
+    assert list(S._rates(got, lrs, first=4)) == list(lrs)
+    assert float(S._rates(got, lrs, first=4)["t"]) == np.float32(float(lrs["xyz"]))
+
+
+@pytest.mark.parametrize("overflow", [False, True])
+def test_step_4d_as_the_card_stages_it_is_the_cpu_step(overflow):
+    """train_step_4d's work with the times and rates staged in a tensor and
+    the result written into the state in place, as the card runs it, gives
+    the CPU step's bits; with an overflow the state stays as it was."""
+    model, cams, gts, statics = _scene_4d("cpu")
+    if overflow:
+        statics = dataclasses.replace(statics, capacity=64)
+    state = init_state(model.params, device="cpu")
+    m2, s2 = S.clone_state(model, state)
+    before = {k: v.clone() for k, v in _state(model, state).items()}
+    bg = torch.tensor([0.1, 0.2, 0.3])
+    it, ts = 10_000, [1.5, 4.0, 6.25, 9.0]
+    want = S.train_step_4d(model, state, cams, gts, ts, bg, it, statics, device="cpu")
+    lrs = fourdgs_lrs(statics.opt, statics.spatial_lr_scale, it)
+    scalars = S._stage_scalars(ts, lrs, torch.empty(len(ts) + len(lrs)))
+    got = S._step4d(m2, s2, cams, gts, [scalars[i] for i in range(4)], bg, it,
+                    S._rates(scalars, lrs, first=4), statics, torch.device("cpu"), in_place=True)
+    w, g, m = _state(want.model, want.opt_state), _state(got.model, got.opt_state), _state(m2, s2)
+    for k in w:
+        assert _same_bits(g[k], w[k]), k
+        assert g[k] is m[k], k  # written in place
+    for f in ("loss", "visibility", "binning_total", "nan_flag"):
         assert _same_bits(getattr(got, f), getattr(want, f)), f
     assert (int(got.binning_total) > statics.capacity) == overflow
     if overflow:

@@ -521,7 +521,7 @@ def test_launch_counter_reset():
     kernels.reset_launches()
     assert kernels.launches == {name: 0 for name in (
         "composite_fwd", "composite_bwd", "probe_unaligned", "outspec_a", "outspec_b",
-        "outspec_c", "outspec_d", "outspec_e")}
+        "outspec_c", "outspec_d", "outspec_e", "slice4d_fwd", "slice4d_bwd")}
     # one counter per C function, each exported by one source
     entries = [fn for fns in kernels.SOURCES.values() for fn in fns]
     assert sorted(entries) == sorted(kernels.launches) == sorted(kernels._SIGNATURES)
