@@ -6,6 +6,7 @@ paths on one NVIDIA GPU and check them.
     python3 chip_smoke.py --only 16   # phase 16 and the inputs it needs
     python3 chip_smoke.py --only 17   # phase 17 (the bench entry point) alone
     python3 chip_smoke.py --only 18   # phase 18 (the slicing kernel pair) alone
+    python3 chip_smoke.py --only 19   # phase 19 (the pack VJP kernel) alone
 
 Phases (any failure ends the script with a non-zero exit and no result line):
 
@@ -247,8 +248,23 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    3.35 TB/s (698 and 1,340 B a row); a time below the bound fails. Then
    train_step_4d on four 1352x1014 views (16x16 tiles, exact sort) three
    times (an eager call; a capture, which replays; a replay), with the
-   launch and graph counters set to 0 before: each kernel must launch
-   once a view.
+   launch and graph counters set to 0 before: each kernel, and the pack
+   VJP, must launch once a view.
+19. the pack VJP kernel (csrc/pack_vjp.cu) at the training cells' shapes:
+   the binning of one n3v view (the bench scene at 1352x1014, 32x16 tiles,
+   917,504 slots) and of one n3v_4dgs view (phase 18's model, 16x16 tiles,
+   exact sort, 4,063,232 slots), taken from the render path itself, with
+   seeded cotangents on the live instances (1% of them -0.0): the kernel
+   bit-equal to its plain version (ops/rasterize_cuda.py::pack_vjp_plain)
+   and two launches bit-equal; the elements where it differs from the float64 prefix
+   difference it replaced, in ulps; CUDA-event times beside the bytes
+   bound of gsbench/metrics/pack_vjp_roofline.py's count (68 B a live
+   instance, 72 B a visible Gaussian, at 3.35 TB/s; a time below it fails),
+   beside the plain version and the replaced scan (its library_ms), and the
+   two kernels' device times under torch.profiler. A view over
+   PACK_VJP_MS_LIMIT fails. Its kernels line entry counts as `launches`
+   the main-path calls of phases 6, 12, 14, 15 and 18 (one per train_step
+   attempt and view), and this phase's own calls as `microbench_launches`.
 
 The lines before the last are the card's name and power limit (as
 nvidia-smi prints them) and a JSON object with one entry per kernel; the
@@ -912,8 +928,9 @@ def subpixel_phase(dev, scene, bg, pairs_none, card: str) -> dict:
         f"through a render launched {backward_counts}; loss {loss.item():.6f}, gradients of "
         f"{len(grads)} params, {nonzero} non-zero, finite {finite_g}")
     want = dict.fromkeys(render_counts, 0)
-    if backward_counts != {**want, "composite_fwd": 1, "composite_bwd": 1}:
-        fail(f"the subpixel backward launched {backward_counts}, expected one of A and B")
+    if backward_counts != {**want, "composite_fwd": 1, "composite_bwd": 1, "pack_vjp": 1}:
+        fail(f"the subpixel backward launched {backward_counts}, expected one of A, B and the "
+             f"pack VJP")
     if not (finite_g and nonzero > 0):
         fail("the subpixel backward gave non-finite or all-zero gradients")
     del leaves, grads, res, loss
@@ -1000,7 +1017,7 @@ def check_launches(what: str, report: dict) -> None:
     first, last = report["iterations"]
     attempts = last - first + 1 + report["overflow_retries"]
     want = {"composite_fwd": attempts + report["test_renders"] + report["gui_renders"],
-            "composite_bwd": attempts}
+            "composite_bwd": attempts, "pack_vjp": attempts}
     got = report["kernel_launches"]
     if got != {**dict.fromkeys(got, 0), **want}:
         fail(f"{what}: kernel launches {got}, the schedule implies {want}")
@@ -1106,7 +1123,7 @@ def trainer_phase(dev, card: str, tmp: str) -> tuple[dict, str, dict]:
     trainer on a tiny scene on the card against the CPU. The scene and the
     model go to `tmp`. Returns kernels A and B's launches in the trainer's
     runs and their largest difference from the plain versions on the saved
-    model, the model directory, and the first run's train_report.json."""
+    model, the pack VJP's launches there, the model directory, and the first run's train_report.json."""
     from ex4dgs_tpu_torch.bench_frame import write_n3v_scene
     from ex4dgs_tpu_torch.io.checkpoint import digest, load_checkpoint
     from ex4dgs_tpu_torch.models import density as D
@@ -1191,10 +1208,11 @@ def trainer_phase(dev, card: str, tmp: str) -> tuple[dict, str, dict]:
     check_launches("trainer path, resumed", resumed)
 
     small = small_trainer_check(dev, card)
-    return {name: {"trainer_launches": first["kernel_launches"][name]
-                   + resumed["kernel_launches"][name] + small[name],
-                   "trainer_max_abs_err": errs[name]}
-            for name in ("composite_fwd", "composite_bwd")}, out, first
+    launched = {name: first["kernel_launches"][name] + resumed["kernel_launches"][name]
+                + small[name] for name in ("composite_fwd", "composite_bwd", "pack_vjp")}
+    return {name: {"trainer_launches": launched[name], "trainer_max_abs_err": errs[name]}
+            for name in ("composite_fwd", "composite_bwd")} | {
+        "pack_vjp": {"trainer_launches": launched["pack_vjp"]}}, out, first
 
 
 def serial_vs_pipelined(dev, first: dict, model_dir: str, card: str) -> None:
@@ -1332,9 +1350,10 @@ def small_trainer_check(dev, card: str) -> dict:
         + f"; launches {counts}; losses finite {np.isfinite(tail['loss']).all()}")
     if not (sc1 > sc0 and np.isfinite(tail["loss"]).all()
             and counts == {**dict.fromkeys(counts, 0), "composite_fwd": steps,
-                           "composite_bwd": steps}):
+                           "composite_bwd": steps, "pack_vjp": steps}):
         fail("the small trainer's static capacity did not grow on the card, or its run "
-             "through the schedule was not finite or launched other than A and B per step")
+             "through the schedule was not finite or launched other than A, B and the pack "
+             "VJP per step")
     (g, gc, _, glog), (c, cc, _, _) = runs[("cuda", 65536)], runs[("cpu", 65536)]
     rel = np.abs(np.asarray(g["loss"]) - np.asarray(c["loss"])) / np.abs(np.asarray(c["loss"]))
     same_bg = all(np.array_equal(a, b) for a, b in zip(g["backgrounds"], c["backgrounds"]))
@@ -1345,7 +1364,8 @@ def small_trainer_check(dev, card: str) -> dict:
         f"{same_bg}; card launches {gc}")
     if not (rel.max() <= 1e-5 and same_bg and same_t):
         fail("the trainer on the card disagrees with the CPU on the small scene")
-    if gc != {**dict.fromkeys(gc, 0), "composite_fwd": n, "composite_bwd": n} or any(cc.values()):
+    if (gc != {**dict.fromkeys(gc, 0), "composite_fwd": n, "composite_bwd": n, "pack_vjp": n}
+            or any(cc.values())):
         fail(f"small trainer launches: card {gc}, cpu {cc}")
     o, oc, retries, _ = runs[("cuda", 256)]
     swap = orders[("cuda", 256)]
@@ -1711,7 +1731,7 @@ def viewer_check(dev, model, cfg, scene, capacity: int, card: str) -> tuple[int,
         f"{report['psnr']!r} over {report['n_frames']} (<= 1e-3 dB), launches {eval_counts}")
     if not (not th.is_alive() and tr.gui_renders == 1 and result.get("verify") == root.encode()
             and counts == {**dict.fromkeys(counts, 0), "composite_fwd": want,
-                           "composite_bwd": tr.steps}):
+                           "composite_bwd": tr.steps, "pack_vjp": tr.steps}):
         fail("the Trainer did not serve the viewer once during its 3 iterations")
     implied = evaluated["n_frames"] + timings["overflow_retries"]
     if not (evaluated["n_frames"] == report["n_frames"] > 0
@@ -1849,8 +1869,8 @@ def quality_phase(dev, card: str, tmp: str) -> dict:
     overflows its capacity runs its backward, gated on the device, and is
     re-run). Then kernels A and B against
     their plain versions on one training view of the trained model
-    (trainer_kernels_hold). Returns A's and B's launches and errors for the
-    kernels line."""
+    (trainer_kernels_hold). Returns A's and B's launches and errors, and
+    the pack VJP's launches, for the kernels line."""
     from ex4dgs_tpu_torch import kernels, quality
 
     args = quality.parse_args(["--out", os.path.join(tmp, "quality")])
@@ -1890,7 +1910,7 @@ def quality_phase(dev, card: str, tmp: str) -> dict:
     want_a = (n_gt + tr.steps + tr.test_renders + quality.N_T + 1
               + quality.FPS_WARMUP + quality.FPS_RENDERS)
     want = {**dict.fromkeys(launched, 0), "composite_fwd": want_a,
-            "composite_bwd": tr.steps}
+            "composite_bwd": tr.steps, "pack_vjp": tr.steps}
     log(f"# quality run launches {launched}, the run implies {want} ({n_gt} ground truth + "
         f"{tr.steps} steps + {tr.test_renders} test + {quality.N_T} held-out + 1 probe + "
         f"{quality.FPS_WARMUP} + {quality.FPS_RENDERS} FPS renders; B once per step, overflow "
@@ -1908,7 +1928,7 @@ def quality_phase(dev, card: str, tmp: str) -> dict:
                                 cam=cams[len(cams) // 2], what="quality run")
     return {name: {"quality_launches": launched[name], "quality_max_abs_err": errs[name]}
             for name in ("composite_fwd", "composite_bwd")} | {
-        "summary": s, "wall_s": wall}
+        "pack_vjp": {"quality_launches": launched["pack_vjp"]}, "summary": s, "wall_s": wall}
 
 
 def tight_cull_phase(dev, card: str) -> dict:
@@ -1922,8 +1942,8 @@ def tight_cull_phase(dev, card: str) -> dict:
     counters are set to 0 before these renders and steps and read after
     them. Printed: the pairs in the tile ranges with the cull off and on,
     kernels A and B in turns on the two frames, and the bin and pack
-    device ms. Returns A's and B's launches and times for the kernels
-    line."""
+    device ms. Returns A's and B's launches and times, and the pack VJP's
+    launches, for the kernels line."""
     from ex4dgs_tpu_torch import kernels
     from ex4dgs_tpu_torch.bench_frame import (bench_offsets, bench_scene, cotangents, cuda_ms,
                                               pack_frame)
@@ -1981,7 +2001,8 @@ def tight_cull_phase(dev, card: str) -> dict:
         and torch.equal(a.opt_state.nu[k], b.opt_state.nu[k]) for k in a.model.params))
     torch.cuda.synchronize()
     launched = dict(kernels.launches)
-    want = {**dict.fromkeys(launched, 0), "composite_fwd": 4 + 2 + 2, "composite_bwd": 2 + 2}
+    want = {**dict.fromkeys(launched, 0), "composite_fwd": 4 + 2 + 2, "composite_bwd": 2 + 2,
+            "pack_vjp": 2 + 2}
     nonzero = sum(int((g != 0).any()) for g in grads[False].values())
     log(f"# tight cull, bench frame at t=1, cull off against on: render, depth, acc, flow, "
         f"dominant ids bit-equal {same}; gradients of an L1 loss through a render bit-equal "
@@ -2072,6 +2093,7 @@ def tight_cull_phase(dev, card: str) -> dict:
             "composite_bwd": {"tight_cull_launches": launched["composite_bwd"],
                               "tight_cull_ms": b_t["cull on"][0],
                               "tight_cull_ms_off": b_t["cull off"][0]},
+            "pack_vjp": {"tight_cull_launches": launched["pack_vjp"]},
             "pairs": in_ranges, "bin_ms": bin_ms, "pack_ms": pack_ms}
 
 
@@ -2315,8 +2337,10 @@ def nccl_one_phase(dev, scene, train_ms: float, card: str) -> dict:
         f"(phase 8); {card}")
     if backend != ("nccl" if dev.type == "cuda" else "gloo") or d_a != d_ref or d_a != d_b:
         fail("the NCCL (1, 1) sharded step is not train_step's, or not deterministic")
-    if launches != {**dict.fromkeys(launches, 0), "composite_fwd": 2, "composite_bwd": 2}:
-        fail(f"the (1, 1) sharded step launched {launches}, expected one A and one B a step")
+    if launches != {**dict.fromkeys(launches, 0), "composite_fwd": 2, "composite_bwd": 2,
+                    "pack_vjp": 2}:
+        fail(f"the (1, 1) sharded step launched {launches}, expected one A, one B and one pack "
+             f"VJP a step")
     return {"nccl_launches": launches, "nccl_ms": timing.ms}
 
 
@@ -2458,7 +2482,7 @@ def gloo_two_phase(dev, scene, scene_fn, caps: dict, train_ms: float, card: str,
         loss_ok = abs(o["loss"] - ref_loss) <= 1e-4 * abs(ref_loss)
         denom_ok = np.allclose(o["denom"], ref.stats["denom"] * mesh[0], atol=1e-5)
         same = len({x["digest"] for x in outs}) == 1
-        want = {"composite_fwd": 1, "composite_bwd": 1}
+        want = {"composite_fwd": 1, "composite_bwd": 1, "pack_vjp": 1}
         launch_ok = all(x["launches"] == {**dict.fromkeys(x["launches"], 0), **want}
                         for x in outs)
         for x in outs:
@@ -2791,9 +2815,10 @@ def fourdgs_scene(dev, rows: int = SLICE_ROWS, seed: int = 18):
                          active_sh_degree_t=torch.tensor(2, **i32))
 
 
-def slice4d_phase(dev, card: str) -> list[dict]:
+def slice4d_phase(dev, card: str) -> tuple[list[dict], int]:
     """Phase 18 (see the module's docstring). Returns the kernels line's
-    entries of slice4d_fwd and slice4d_bwd."""
+    entries of slice4d_fwd and slice4d_bwd, and the pack VJP's launches in
+    the three train_step_4d calls."""
     from ex4dgs_tpu_torch import kernels
     from ex4dgs_tpu_torch.bench_frame import cuda_ms
     from ex4dgs_tpu_torch.kernel_config import KernelConfig
@@ -2892,7 +2917,7 @@ def slice4d_phase(dev, card: str) -> list[dict]:
         outs.append((float(out.loss), bool(out.nan_flag), int(out.binning_total)))
     torch.cuda.synchronize()
     calls = kernels.graph_call_counts(dev)
-    launched = {k: kernels.launches[k] for k in ("slice4d_fwd", "slice4d_bwd")}
+    launched = {k: kernels.launches[k] for k in ("slice4d_fwd", "slice4d_bwd", "pack_vjp")}
     log(f"# train_step_4d x3 at {SLICE_W}x{SLICE_H}, 4 views (loss, nan, largest view's "
         f"instances of {statics.capacity}): {outs}; graph calls {calls}; launches {launched}")
     step_mod._GRAPHS.clear()
@@ -2900,8 +2925,9 @@ def slice4d_phase(dev, card: str) -> list[dict]:
     if calls != {"eager": 1, "captures": 1, "replays": 2}:
         fail(f"train_step_4d's graph calls are {calls}, not an eager call, a capture and two "
              f"replays")
-    if launched != {"slice4d_fwd": 12, "slice4d_bwd": 12}:
-        fail(f"the slicing kernels launched {launched} times in 3 steps of 4 views, not 12")
+    if launched != {"slice4d_fwd": 12, "slice4d_bwd": 12, "pack_vjp": 12}:
+        fail(f"the slicing kernels and the pack VJP launched {launched} times in 3 steps of 4 "
+             f"views, not 12")
     if any(nan or not math.isfinite(loss) or n > statics.capacity for loss, nan, n in outs):
         fail("train_step_4d gave a non-finite loss, a NaN or an overflow")
     del model, state, params, mask, gts
@@ -2909,7 +2935,7 @@ def slice4d_phase(dev, card: str) -> list[dict]:
     return [{"name": k, "route": "cuda", "source": f"ex4dgs_tpu_torch/csrc/{k}.cu",
              "replaces": None, "launches": launched[k], "rows": P, "max_rel_err": worst[k],
              "ms": ms[k], "plain_ms": plain_ms[k], "bound_ms": bound[k], "bound_by": "bytes",
-             "bytes": moved[k], "library_ms": None} for k in ms]
+             "bytes": moved[k], "library_ms": None} for k in ms], launched["pack_vjp"]
 
 
 def slice4d_alone() -> int:
@@ -2922,10 +2948,170 @@ def slice4d_alone() -> int:
     card = card_line()
     kernels.load_all()
     t0 = time.perf_counter()
-    out = slice4d_phase(torch.device("cuda"), card)
+    out, _ = slice4d_phase(torch.device("cuda"), card)
     log(f"# phase 18 {time.perf_counter() - t0:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": out}), flush=True)
+    return 0
+
+
+# Phase 19: the pack VJP kernel (csrc/pack_vjp.cu) at the training cells'
+# shapes. n3v: the bench scene (100k static + 10k dynamic splats) through
+# one 1352x1014 view at 32x16 tiles into n3v.train's 917,504 slots;
+# n3v_4dgs: phase 18's 500,000 4D Gaussians through one view at 16x16 tiles
+# with the exact sort into default_capacity's 4,063,232 slots. A time above
+# the limit fails, as does one below the bytes bound.
+PACK_VJP_CAPACITY = {"n3v": 917_504, "n3v_4dgs": 4_063_232}
+PACK_VJP_MS_LIMIT = {"n3v": 0.15, "n3v_4dgs": 0.30}
+# gsbench/metrics/pack_vjp_roofline.py's count: per live instance its 16
+# cotangent floats and its slot (68 B), per visible Gaussian cum, counts and
+# its 16 gradient floats (72 B)
+PACK_VJP_BYTES = (68, 72)
+
+
+def spy_pack_inputs(fn) -> tuple:
+    """(slot, cum, counts, capacity) that the render `fn()` passes to
+    PackSorted: a binning exactly as the training path builds it."""
+    from ex4dgs_tpu_torch.ops import rasterize_cuda as trc
+
+    seen = []
+    apply = trc.PackSorted.apply
+
+    def spy(rows, order, cum, counts, slot):
+        seen.append((slot, cum, counts, order.shape[0]))
+        return apply(rows, order, cum, counts, slot)
+
+    trc.PackSorted.apply = spy
+    try:
+        with torch.no_grad():
+            fn()
+    finally:
+        trc.PackSorted.apply = apply
+    return seen[0]
+
+
+def scan_recipe(ct, slot, cum, counts):
+    """The pack VJP as PackSorted.backward computed it before the kernel: a
+    float64 inclusive prefix of the cotangent put back in expansion order,
+    over the whole capacity, differenced at each Gaussian's segment ends
+    (the library's version of the phase)."""
+    capacity = ct.shape[1]
+    slot_s = torch.empty(capacity, dtype=torch.long, device=ct.device)
+    slot_s[slot.long()] = torch.arange(capacity, device=ct.device)
+    pref = torch.zeros((ct.shape[0], capacity + 1), dtype=torch.float64, device=ct.device)
+    torch.cumsum(ct.index_select(1, slot_s).double(), dim=1, out=pref[:, 1:])
+    hi = cum.long().clamp(0, capacity)
+    lo = (cum - counts).long().clamp(0, capacity)
+    return (pref.index_select(1, hi) - pref.index_select(1, lo)).float()
+
+
+def pack_vjp_phase(dev, card: str) -> dict:
+    """Phase 19 (see the module's docstring). Returns the kernels line's
+    entry of pack_vjp, without its main-path `launches`, which the caller
+    counts; `microbench_launches` are this phase's own calls."""
+    from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch.bench_frame import bench_scene, cuda_ms
+    from ex4dgs_tpu_torch.kernel_config import KernelConfig
+    from ex4dgs_tpu_torch.models.config import Model4DConfig
+    from ex4dgs_tpu_torch.ops import rasterize_cuda as trc
+    from ex4dgs_tpu_torch.rendering import default_capacity, render, render4d
+    from ex4dgs_tpu_torch.runtime.profiling import profile_calls
+    from ex4dgs_tpu_torch.synthetic import ring_cameras
+
+    bg = torch.zeros(3, device=dev)
+    scene = bench_scene(dev)
+    views = {"n3v": spy_pack_inputs(lambda: render(
+        scene.cam, scene.model, scene.cfg, t=1.0, bg=bg, capacity=PACK_VJP_CAPACITY["n3v"],
+        device=dev))}
+    del scene
+    model = fourdgs_scene(dev)
+    kcfg = KernelConfig(tile_x=16, tile_y=16, exact_sort=True).validate()
+    cam = ring_cameras(8, 12.0, SLICE_W, SLICE_H, device=dev)[3]
+    if default_capacity(model.capacity, SLICE_W, SLICE_H, kcfg) != PACK_VJP_CAPACITY["n3v_4dgs"]:
+        fail("n3v_4dgs's default capacity is no longer 4,063,232 slots")
+    views["n3v_4dgs"] = spy_pack_inputs(lambda: render4d(
+        cam, model, Model4DConfig(time_duration=(0.0, SLICE_SPAN)), t=3.7, bg=bg,
+        kernel_cfg=kcfg, device=dev))
+    del model
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(19)
+    kernels.reset_launches()
+    out = {}
+    for name, (slot, cum, counts, capacity) in views.items():
+        if capacity != PACK_VJP_CAPACITY[name]:
+            fail(f"{name}: the render packed {capacity} slots, not {PACK_VJP_CAPACITY[name]}")
+        P = cum.shape[0]
+        total = int(cum[-1])
+        live = min(total, capacity)
+        n = counts.long()
+        visible = int((n > 0).sum())
+        ct = torch.randn((16, capacity), generator=g, device=dev)
+        # kernel B can give -0.0 (a product with a zero weight); its gradient
+        # is 0 outside every tile's range
+        ct[torch.rand((16, capacity), generator=g, device=dev) < 0.01] = -0.0
+        ct[:, live:] = 0.0
+        args = (ct, slot, cum, counts)
+        got = kernels.pack_vjp(*args)
+        again = kernels.pack_vjp(*args)
+        want = trc.pack_vjp_plain(*args)
+        scan = scan_recipe(*args)
+        torch.cuda.synchronize()
+        same, stable = torch.equal(got, want), torch.equal(got, again)
+        # ulps between the segment sums and the prefix difference
+        ulps = (got.view(torch.int32).long() - scan.view(torch.int32).long()).abs()
+        differ = int((ulps > 0).sum())
+        moved = PACK_VJP_BYTES[0] * live + PACK_VJP_BYTES[1] * visible
+        bound = 1e3 * moved / HBM_BYTES_S
+        ms = cuda_ms(lambda: kernels.pack_vjp(*args), reps=50)
+        plain_ms = cuda_ms(lambda: trc.pack_vjp_plain(*args), reps=3, warmup=1)
+        library_ms = cuda_ms(lambda: scan_recipe(*args), reps=10, warmup=1)
+        prof = profile_calls(lambda: kernels.pack_vjp(*args), n=10)
+        split = ("not measured (the profiler saw no device time)" if prof is None else
+                 ", ".join(f"{k} {v:.4f} ms" for k, v, _ in prof[3] if "pack_vjp" in k))
+        log(f"# pack_vjp, {name}: {P} rows, {visible} with instances, {live} instances of "
+            f"{capacity} slots (largest segment {int(n.max())}, {int((n > 1000).sum())} over "
+            f"1,000); kernel = plain bit for bit {same}, two launches bit-equal {stable}; "
+            f"against the prefix difference {differ} of {got.numel()} elements differ, by at "
+            f"most {int(ulps.max())} ulp")
+        log(f"# pack_vjp, {name}: {ms:.4f} ms a view (CUDA events, 50 launches; limit "
+            f"{PACK_VJP_MS_LIMIT[name]}), by kernel (profiler) {split}; bound {bound:.4f} ms "
+            f"({moved / 1e6:.1f} MB at {HBM_BYTES_S / 1e12:.2f} TB/s), {100 * bound / ms:.1f}% "
+            f"of it; plain {plain_ms:.4f} ms; the float64 scan {library_ms:.4f} ms; {card}")
+        if not (same and stable):
+            fail(f"pack_vjp at {name}'s shape is not its plain version bit for bit, or two "
+                 f"launches differ")
+        if ms < bound:
+            fail(f"pack_vjp read {ms:.4f} ms at {name}'s shape, below its bound {bound:.4f} ms")
+        if ms > PACK_VJP_MS_LIMIT[name]:
+            fail(f"pack_vjp took {ms:.4f} ms a view at {name}'s shape, over "
+                 f"{PACK_VJP_MS_LIMIT[name]} ms")
+        out[name] = {"rows": P, "instances": live, "visible": visible, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+                     "bytes": moved, "ulps_from_scan": int(ulps.max())}
+        del ct, args, got, again, want, scan
+    del views
+    torch.cuda.empty_cache()
+    return {"name": "pack_vjp", "route": "cuda", "source": "ex4dgs_tpu_torch/csrc/pack_vjp.cu",
+            "replaces": None, "microbench_launches": kernels.launches["pack_vjp"],
+            "max_abs_err": 0.0,
+            **out["n3v_4dgs"], "bound_by": "bytes", "n3v": out["n3v"]}
+
+
+def pack_vjp_alone() -> int:
+    """Phase 19 alone (`python3 chip_smoke.py --only 19`): the kernels
+    built, then the pack VJP kernel and its kernels line."""
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures the port on a GPU")
+    from ex4dgs_tpu_torch import kernels
+
+    card = card_line()
+    kernels.load_all()
+    t0 = time.perf_counter()
+    out = pack_vjp_phase(torch.device("cuda"), card)
+    log(f"# phase 19 {time.perf_counter() - t0:.1f} s")
+    print(card, flush=True)
+    # no main-path run in this mode: the full script counts them
+    print(json.dumps({"kernels": [{**out, "launches": None}]}), flush=True)
     return 0
 
 
@@ -3190,7 +3376,8 @@ def main() -> int:
         for name, n in counts.items():
             train_launches[name] += n
         loss = out.loss.item()
-        if counts != {**dict.fromkeys(counts, 0), "composite_fwd": 1, "composite_bwd": 1}:
+        if counts != {**dict.fromkeys(counts, 0), "composite_fwd": 1, "composite_bwd": 1,
+                      "pack_vjp": 1}:
             fail(f"train step {i}: kernel launches {counts}, expected one of each")
         if int(out.binning_total.item()) > capacity:
             fail(f"train step {i}: {int(out.binning_total)} instances overflow {capacity}")
@@ -3297,8 +3484,11 @@ def main() -> int:
     benched = bench_phase(dev, card)
     phase_done(17)
     torch.cuda.empty_cache()
-    slicing = slice4d_phase(dev, card)
+    slicing, pack_4d = slice4d_phase(dev, card)
     phase_done(18)
+    torch.cuda.empty_cache()
+    packing = pack_vjp_phase(dev, card)
+    phase_done(19)
     log("# phase times (s): " + ", ".join(f"{n} {t:.1f}" for n, t in phase_s)
         + f"; total {sum(t for _, t in phase_s):.1f}")
 
@@ -3356,7 +3546,15 @@ def main() -> int:
         **sub["composite_bwd"],
         **multi["composite_bwd"],
         **benched["composite_bwd"],
-    }, *probe_entries, *slicing]}), flush=True)
+    }, *probe_entries, *slicing, {
+        **packing,
+        # one per train_step attempt on the main paths: train_step (6), the
+        # trainer (12), the quality run (14), the tight cull (15) and
+        # train_step_4d (18)
+        "launches": (train_launches["pack_vjp"] + trainer["pack_vjp"]["trainer_launches"]
+                     + quality["pack_vjp"]["quality_launches"]
+                     + cull["pack_vjp"]["tight_cull_launches"] + pack_4d),
+    }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -3404,5 +3602,6 @@ def multi_gpu_alone() -> int:
 
 if __name__ == "__main__":
     only = {("--only", "12"): pipeline_alone, ("--only", "16"): multi_gpu_alone,
-            ("--only", "17"): bench_alone, ("--only", "18"): slice4d_alone}
+            ("--only", "17"): bench_alone, ("--only", "18"): slice4d_alone,
+            ("--only", "19"): pack_vjp_alone}
     sys.exit(only.get(tuple(sys.argv[1:]), main)())

@@ -39,7 +39,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# csrc/<source>.cu -> the C functions it exports, each launching one kernel.
+# csrc/<source>.cu -> the C functions it exports, each launching one kernel
+# (pack_vjp two: the cotangents put in expansion order, then the segment sums).
 SOURCES = {
     "composite_fwd": ("composite_fwd",),
     "composite_bwd": ("composite_bwd",),
@@ -47,6 +48,7 @@ SOURCES = {
     "probe_outspec": ("outspec_a", "outspec_b", "outspec_c", "outspec_d", "outspec_e"),
     "slice4d_fwd": ("slice4d_fwd",),
     "slice4d_bwd": ("slice4d_bwd",),
+    "pack_vjp": ("pack_vjp",),
 }
 launches: dict[str, int] = {fn: 0 for fns in SOURCES.values() for fn in fns}
 _tallies: list[dict[str, int]] = []  # launches of the graphs being captured
@@ -78,6 +80,8 @@ _SIGNATURES = {
     # 9 params, t, campos, degree, degree_t, 4 cotangents, P, bands, span,
     # 9 gradients, stream
     "slice4d_bwd": [_P] * 17 + [ctypes.c_longlong, _I, ctypes.c_float] + [_P] * 10,
+    # ct, slot, cum, counts, by_slot, d_rows, capacity, P, stream
+    "pack_vjp": [_P] * 6 + [ctypes.c_longlong, ctypes.c_longlong, _P],
 }
 _locks = {name: threading.Lock() for name in SOURCES}
 
@@ -509,3 +513,33 @@ def slice4d_bwd(*args, span: float):
             *(x.data_ptr() for x in cots), P, bands, float(span),
             *(x.data_ptr() for x in grads))
     return grads
+
+
+def pack_vjp(ct: torch.Tensor, slot: torch.Tensor, cum: torch.Tensor,
+             counts: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/pack_vjp.cu on CUDA tensors: the cotangent ct f32
+    [16, capacity] of the packed buffer, slot i32 [capacity] (Binning.slot),
+    cum and counts i32 [P] (Binning.cum, Binning.counts). Returns d_rows f32
+    [16, P], each Gaussian's sum of its instances' cotangent columns
+    (ops/rasterize_cuda.py::pack_vjp_plain gives the same bits), computed
+    on the current stream. Raises on anything the kernel does not take, and
+    when the launch fails."""
+    dev = ct.device
+    capacity = ct.shape[1] if ct.dim() == 2 else -1
+    P = cum.shape[0] if cum.dim() == 1 else -1
+    _check("ct", ct, torch.float32, (16, capacity), dev)
+    _check("slot", slot, torch.int32, (capacity,), dev)
+    _check("cum", cum, torch.int32, (P,), dev)
+    _check("counts", counts, torch.int32, (P,), dev)
+    if capacity >= 2**31:
+        raise ValueError(f"capacity {capacity}: the kernel's slots are int32")
+    if dev.type != "cuda":
+        raise ValueError(f"pack_vjp runs on CUDA tensors, got {dev}")
+    # the live instances' cotangent rows in expansion order (scratch)
+    by_slot = torch.empty((capacity, 16), dtype=torch.float32, device=dev)
+    d_rows = torch.empty((16, P), dtype=torch.float32, device=dev)
+    if P == 0 or capacity == 0:
+        return d_rows.zero_()
+    _launch("pack_vjp", "pack_vjp", dev, ct.data_ptr(), slot.data_ptr(), cum.data_ptr(),
+            counts.data_ptr(), by_slot.data_ptr(), d_rows.data_ptr(), capacity, P)
+    return d_rows

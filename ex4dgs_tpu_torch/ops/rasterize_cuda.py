@@ -39,8 +39,14 @@ outputs stay indexed by the local tile 0 .. T - 1.
 Gradients: `CompositeTiles` is the custom VJP of the JAX package's
 `composite_tiles` and `PackSorted` that of its pack gather
 (`_gather_rows_t`): the per-instance gradient rows are reduced to
-per-Gaussian rows deterministically, as segment sums over the instances
-re-sorted by Gaussian, with no float atomics.
+per-Gaussian rows deterministically, with no atomics. Each Gaussian's row
+is the sum of the cotangent columns of its own instances, taken in the
+expansion order (slot by slot of its segment [cum - counts, cum)) in
+float64 and rounded to float32 once, in one fixed order of sums: the
+kernel csrc/pack_vjp.cu (`kernels.pack_vjp`) for CUDA tensors and its
+plain version `pack_vjp_plain`, bit-equal to it, for CPU tensors. Only the
+read of `Binning.slot` spans the whole capacity; every cotangent moved and
+summed is a live instance's.
 """
 from __future__ import annotations
 
@@ -67,42 +73,97 @@ def _pixels(grid_x: int, num_tiles: int, tile_x: int, tile_y: int, device,
 
 class PackSorted(torch.autograd.Function):
     """data[:, k] = rows[:, order[k]] (order clipped to [0, P)), with a
-    deterministic VJP: the cotangent columns are put back into the
-    expansion order by one scatter of `slot` (Binning.slot, each sorted
-    instance's expansion slot), where each Gaussian's instances fill the
-    segment [cum - counts, cum), and each segment is summed as a difference
-    of a float64 inclusive prefix. Autograd of index_select would
-    scatter-add with float atomics on the GPU. Tail slots (past the last
-    instance) alias real Gaussians through the clipped order; they come
-    after every segment and are summed into none.
+    deterministic VJP: Gaussian g's gradient row is the sum of the
+    cotangent columns of its instances, which fill the expansion slots
+    [cum - counts, cum) (Binning.slot maps each sorted instance to its
+    slot). Tail slots (past the last instance) alias real Gaussians through
+    the clipped order; they come after every segment and are summed into
+    none. Autograd of index_select would scatter-add with float atomics on
+    the GPU.
 
-    Within a Gaussian the expansion order is the sorted order (its
-    instances lie in distinct tiles, expanded in tile order), so this is
-    the sum of a stable sort by Gaussian id, except where the tight cull
-    moved an instance past the last tile: there the culled instance keeps
-    its place in the prefix, and since its cotangent is zero either way,
-    every gradient is bit-equal with the cull on and off (a parallel scan
-    rounds by where each value sits)."""
+    The sums are segment sums over the live instances, in float64, rounded
+    to float32 once (`pack_vjp_plain` has the order). The order depends
+    only on each instance's place in its segment: within a Gaussian the
+    expansion order is the sorted order (its instances lie in distinct
+    tiles, expanded in tile order), except where the tight cull moved an
+    instance past the last tile; there the culled instance keeps its slot,
+    and since its cotangent is zero either way, every gradient is bit-equal
+    with the cull on and off."""
 
     @staticmethod
     def forward(ctx, rows, order, cum, counts, slot):
-        ctx.save_for_backward(order, cum, counts, slot)
+        ctx.save_for_backward(cum, counts, slot)
         return rows.index_select(1, order.long().clamp(0, rows.shape[1] - 1))
 
     @staticmethod
     def backward(ctx, ct):
         with span("ex4dgs.backward.pack"):
-            order, cum, counts, slot = ctx.saved_tensors
-            capacity = order.shape[0]
-            slot_s = torch.empty(capacity, dtype=torch.long, device=ct.device)
-            slot_s[slot.long()] = torch.arange(capacity, device=ct.device)
-            pref = torch.zeros((ct.shape[0], capacity + 1), dtype=torch.float64,
-                               device=ct.device)
-            torch.cumsum(ct.index_select(1, slot_s).double(), dim=1, out=pref[:, 1:])
-            hi = cum.long().clamp(0, capacity)
-            lo = (cum - counts).long().clamp(0, capacity)
-            d_rows = (pref.index_select(1, hi) - pref.index_select(1, lo)).float()
+            cum, counts, slot = ctx.saved_tensors
+            ct = ct.contiguous()
+            if ct.device.type == "cpu":
+                d_rows = pack_vjp_plain(ct, slot, cum, counts)
+            else:
+                d_rows = kernels.pack_vjp(ct, slot, cum, counts)
         return d_rows, None, None, None, None
+
+
+# pack_vjp_plain's lanes: each Gaussian's instances are dealt to this many
+# running sums in turn (csrc/pack_vjp.cu's 32 lanes of a warp).
+PACK_LANES = 32
+
+
+def pack_vjp_plain(ct, slot, cum, counts):
+    """The pack VJP's plain PyTorch version, bit-equal to the kernel
+    (csrc/pack_vjp.cu, `kernels.pack_vjp`): d_rows [R, P] from the
+    cotangent ct [R, capacity] (R = 16 on the kernel's path), slot i32
+    [capacity] (Binning.slot) and cum, counts i32 [P].
+
+    Gaussian g's instances are the expansion slots j in [lo, hi), lo =
+    cum - counts and hi = cum clamped to [0, capacity], and instance j's
+    cotangent is the sorted column slot_s[j], slot_s the inverse of slot.
+    Its m-th instance (m = j - lo) goes to running sum m % 32, each a
+    float64 sum from 0 in the order of m; the 32 sums are added pairwise at
+    distances 16, 8, 4, 2, 1 (sum l + sum l + 16, and so on), and the
+    result is rounded to float32 once. A Gaussian with no instance gets 0.
+    Only the slots below the largest hi are read: every tensor but the
+    inverse of slot is sized by the live instances."""
+    dev = ct.device
+    R, capacity = ct.shape
+    P = cum.shape[0]
+    out = torch.zeros((R, P), dtype=torch.float32, device=dev)
+    if P == 0 or capacity == 0:
+        return out
+    slot_s = torch.empty(capacity, dtype=torch.int32, device=dev)
+    slot_s[slot.long()] = torch.arange(capacity, dtype=torch.int32, device=dev)
+    hi = cum.long().clamp(0, capacity)
+    lo = (cum.long() - counts.long()).clamp(0, capacity)
+    n = (hi - lo).clamp_min(0)
+    live = int(hi.max())
+    if live == 0:
+        return out
+    j = torch.arange(live, device=dev)
+    g = torch.searchsorted(hi, j, right=True)  # the segment of slot j
+    m = j - lo[g]
+    lane_at = lo[g] + m % PACK_LANES  # where the running sum of j's lane lives
+    rnd = m // PACK_LANES
+    vals = ct.index_select(1, slot_s[:live].long()).double()  # [R, live]
+    part = torch.zeros_like(vals)
+    # the running sums, one round of 32 instances a Gaussian at a time
+    by_round = torch.argsort(rnd, stable=True)
+    for idx in torch.split(by_round, torch.bincount(rnd).tolist()):
+        dst = lane_at[idx]
+        part[:, dst] = part[:, dst] + vals[:, idx]
+    # the pairwise sums over each Gaussian's first min(n, 32) slots; a lane
+    # past n holds 0, and x + 0 is x
+    width = torch.clamp_max(n[g], PACK_LANES)
+    dist = PACK_LANES // 2
+    while dist:
+        dst = j[(m < dist) & (m + dist < width)]
+        part[:, dst] = part[:, dst] + part[:, dst + dist]
+        dist //= 2
+    has = n > 0
+    out[:, has] = part[:, lo[has]].float()
+    return out
 
 
 def pack_sorted(proj: Projected, colors, flow, binning: Binning):

@@ -286,7 +286,7 @@ def test_pack_vjp_matches_jax(mode):
 
 def test_pack_vjp_at_production_capacity():
     """A 2M-slot buffer (tests/test_pallas.py's precision probe): the port's
-    float64 prefix against a float64 scatter-add and against the JAX
+    float64 segment sums against a float64 scatter-add and against the JAX
     package's two-level float32 segment VJP."""
     from torch_parity import jax_config
 

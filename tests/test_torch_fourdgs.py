@@ -504,8 +504,8 @@ def test_train_step_4d_replay_is_bit_equal_to_its_eager_call(cuda_device):
     """Five steps of four views through eager call, capture and replays,
     the views, times and background changing, against the same five steps
     each run eagerly: every tensor of the state and every small output
-    equal bit for bit; the slicing kernels launched once per view each
-    way."""
+    equal bit for bit; the slicing kernels and the pack VJP launched once
+    per view each way."""
     dev = cuda_device
     P = 20_000
     p = {k: v.float() for k, v in _params(P, 91).items()}
@@ -537,6 +537,7 @@ def test_train_step_4d_replay_is_bit_equal_to_its_eager_call(cuda_device):
                                          [0.5 + 2.1 * i + 0.7 * j for j in range(4)],
                                          torch.rand(3, generator=g, device=dev), 10_000 + i,
                                          statics, device=dev)
+            pack_launches.append(kernels.launches["pack_vjp"])
             m, st = out.model, out.opt_state
             state = {**{f"p.{k}": v for k, v in m.params.items()},
                      **{f"s.{k}": v for k, v in m.stats.items()},
@@ -546,6 +547,7 @@ def test_train_step_4d_replay_is_bit_equal_to_its_eager_call(cuda_device):
                          [out.loss, out.binning_total, out.nan_flag, out.visibility]))
         return rows
 
+    pack_launches = []  # the pack VJP's count after each call
     g.manual_seed(5)
     eager = run(True)
     kernels.reset_launches()
@@ -555,6 +557,8 @@ def test_train_step_4d_replay_is_bit_equal_to_its_eager_call(cuda_device):
     torch.cuda.synchronize()
     assert kernels.graph_call_counts(dev) == {"eager": 1, "captures": 1, "replays": 4}
     assert kernels.launches["slice4d_fwd"] == kernels.launches["slice4d_bwd"] == 20
+    # one pack VJP a view: the eager call, the capture and each replay
+    assert pack_launches[-5:] == [4, 8, 12, 16, 20], pack_launches
     for (ws, wo), (gs, go) in zip(eager, graphed):
         for k in ws:
             assert torch.equal(ws[k].view(torch.int32) if ws[k].is_floating_point() else ws[k],

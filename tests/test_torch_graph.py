@@ -312,7 +312,8 @@ def test_graphed_step_is_bit_equal_to_the_eager_step(cuda_device, counters):
     state swapped for a copy of itself (a new key, as the trainer's density
     events give: a second eager call and capture). Every tensor of the
     state and every small output equals the eager step's bit for bit; the
-    counters show each call's way and one launch of A and B per step."""
+    counters show each call's way and one launch of A, B and the pack VJP
+    per step."""
     dev = cuda_device
     model, cfg, cams, gts = _card_scene(dev)
     bg = torch.tensor([0.2, 0.4, 0.1], device=dev)
@@ -348,6 +349,7 @@ def test_graphed_step_is_bit_equal_to_the_eager_step(cuda_device, counters):
                 m.params["scaling"].add_(grow)  # in place: the same key
             before = {k: v.clone() for k, v in _state(m, st).items()}
             out = S.train_step(m, st, cams[c], gts[c], ts[j], bg, it + i, statics, device=dev)
+            pack_launches.append(kernels.launches["pack_vjp"])
             for k, v in _state(out.model, out.opt_state).items():
                 assert v is _state(m, st)[k], k  # the state is updated in place
             m, st = out.model, out.opt_state
@@ -357,6 +359,7 @@ def test_graphed_step_is_bit_equal_to_the_eager_step(cuda_device, counters):
                 m.params["scaling"].copy_(scales)
         return rows
 
+    pack_launches = []  # the pack VJP's count after each call
     S._GRAPHS.clear()
     eager = run(*S.clone_state(model, init_state(model.params, device=dev)), eager=True)
     kernels.reset_launches()
@@ -366,6 +369,8 @@ def test_graphed_step_is_bit_equal_to_the_eager_step(cuda_device, counters):
     assert kernels.graph_call_counts(dev) == {"eager": 2, "captures": 2, "replays": 7}
     n = len(plan)
     assert kernels.launches["composite_fwd"] == n and kernels.launches["composite_bwd"] == n
+    # one pack VJP a call, in the eager calls, the captures and the replays
+    assert pack_launches[-n:] == list(range(1, n + 1)), pack_launches
     for i, ((ws, wo, _), (gs, go, gb)) in enumerate(zip(eager, graphed)):
         for k in ws:
             assert _same_bits(gs[k], ws[k]), (i, k)

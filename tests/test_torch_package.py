@@ -47,6 +47,7 @@ from ex4dgs_tpu_torch.probes import outspec, unaligned
 from ex4dgs_tpu_torch.train import __main__ as train_cli
 from ex4dgs_tpu_torch.runtime import distributed
 from ex4dgs_tpu_torch.train import step, trainer
+from test_torch_pack_vjp import WRAPPER_FAULTS, wrapper_fault
 
 torch.set_num_threads(2)
 
@@ -521,10 +522,25 @@ def test_launch_counter_reset():
     kernels.reset_launches()
     assert kernels.launches == {name: 0 for name in (
         "composite_fwd", "composite_bwd", "probe_unaligned", "outspec_a", "outspec_b",
-        "outspec_c", "outspec_d", "outspec_e", "slice4d_fwd", "slice4d_bwd")}
+        "outspec_c", "outspec_d", "outspec_e", "slice4d_fwd", "slice4d_bwd",
+        "pack_vjp")}
     # one counter per C function, each exported by one source
     entries = [fn for fns in kernels.SOURCES.values() for fn in fns]
     assert sorted(entries) == sorted(kernels.launches) == sorted(kernels._SIGNATURES)
+
+
+@pytest.mark.parametrize("fault", [*WRAPPER_FAULTS, "cpu"])
+def test_pack_vjp_wrapper_refuses_what_the_kernel_does_not_take(fault):
+    """kernels.pack_vjp takes ct f32 [16, capacity], slot i32 [capacity],
+    cum and counts i32 [P], contiguous, on one CUDA device; anything else
+    (CPU tensors too: "cpu" has no other fault) is refused before anything
+    is built, with no launch counted. The faults are
+    tests/test_torch_pack_vjp.py's, which refuses them on the card."""
+    args = wrapper_fault(None if fault == "cpu" else fault, "cpu")
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError):
+        kernels.pack_vjp(*args)
+    assert kernels.launches == before and not kernels._libs
 
 
 # The C entry points of kernels A and B as the sources of an earlier

@@ -149,9 +149,9 @@ def test_cull_is_bitwise_one_instance_at_a_time(case, subpixel):
     """Kernel A's plain version at chunk 1, kernel B's twin and the pack VJP
     (the kernels' order of operations): every output and every
     per-Gaussian gradient row bit-equal with the cull on and off, and the
-    pack VJP's float64 scan gets the same columns in the same order (so a
-    parallel scan on the card, whose rounding depends on where each value
-    sits, sums them alike)."""
+    pack VJP reads the same cotangent at every expansion slot (so the
+    kernel, whose order of sums follows the slots alone, sums them alike
+    on the card)."""
     from torch_parity import H, W
 
     t, tile = case["t"], case["tile"]
@@ -179,12 +179,12 @@ def test_cull_is_bitwise_one_instance_at_a_time(case, subpixel):
         dgrad = trc.composite_tiles_bwd_walk(data.detach(), b.tile_start, b.tile_stop, gacc,
                                              acdot, gend, tfinal, **grid)
         g_rows, = torch.autograd.grad(data, rows, grad_outputs=dgrad)
-        # the pack VJP's scan input: the cotangent columns in expansion order
-        scan_in = torch.zeros_like(dgrad)
-        scan_in[:, b.slot.long()] = dgrad
-        got[tight] = (accum, tfinal, best, g_rows, scan_in)
+        # the pack VJP's input: the cotangent columns in expansion order
+        by_slot = torch.zeros_like(dgrad)
+        by_slot[:, b.slot.long()] = dgrad
+        got[tight] = (accum, tfinal, best, g_rows, by_slot)
     for a, b, name in zip(got[True], got[False], ("accum", "tfinal", "bestidx", "grad rows",
-                                                  "scan input")):
+                                                  "input by slot")):
         assert torch.equal(a, b), name
     assert got[False][3].abs().max() > 0
 
