@@ -24,13 +24,10 @@ It prints one JSON line, last: bench.py's keys in bench.py's order and
 units (`value` is the fwd+bwd rate in Mpixels/s, `vs_baseline` that rate
 over BASELINE.md's 40 Mpix/s estimate), then the port's own: each timing
 in ms per call; kernels A and B alone on the bench frame (CUDA events,
-`bench_frame.cuda_ms`, as chip_smoke.py phases 3 and 5 time them); the
-train step's device ms per call (torch.profiler over three steps) and the
-device busy share, that time over those steps' wall time under the
-profiler (`runtime.profiling.device_busy_share`); the compositing kernels' launches per call of each timing and
-over the whole run; the card's name and power limit; the torch and CUDA
-versions. Lines before it start with "#". The device figures are null on
-the CPU.
+`bench_frame.cuda_ms`, as chip_smoke.py's kernels phase times them); the
+compositing kernels' launches per call of each timing and over the whole
+run; the card's name and power limit; the torch and CUDA versions. Lines
+before it start with "#". The device figures are null on the CPU.
 
 The run is on `cuda` unless --device names another device, and raises where
 there is no CUDA device. Nothing is caught: a failed launch or an instance
@@ -183,7 +180,7 @@ def card() -> str:
 def kernel_ms(scene: BenchScene, kcfg: KernelConfig) -> tuple[float, float]:
     """(kernel A ms, kernel B ms) per launch on the scene's frame at t = 1
     packed at kcfg, B on seeded cotangents: CUDA events over 20 launches
-    after 2 warm-ups, as chip_smoke.py phases 3 and 5 time them."""
+    after 2 warm-ups, as chip_smoke.py's kernels phase times them."""
     f = pack_frame(scene, kcfg.tile_x, kcfg.tile_y, kcfg.tight_cull, exact_sort=kcfg.exact_sort)
     kw = dict(grid_x=f.grid_x, tile_x=kcfg.tile_x, tile_y=kcfg.tile_y)
     accum, tfinal, _ = kernels.composite_fwd(f.data, f.gid, f.starts, f.stops, track_idx=True,
@@ -237,13 +234,9 @@ def run(device=None) -> dict:
     def mpix_s(name):
         return W * H / ms[name] / 1e3 if name in ms else None
 
-    composite, (device_ms, busy), card_name = (None, None), (None, None), None
+    composite, card_name = (None, None), None
     if dev.type == "cuda":
         composite = kernel_ms(scene, kcfg)
-        if "train_step" in ticks:
-            from .runtime.profiling import device_busy_share
-
-            device_ms, busy = device_busy_share(lambda: ticks["train_step"](1))
         card_name = card()
     return {
         "metric": "rasterizer_fwd_bwd_throughput",
@@ -263,8 +256,6 @@ def run(device=None) -> dict:
         "render_noidx_ms": ms["render_noidx"],
         "composite_fwd_ms": composite[0],
         "composite_bwd_ms": composite[1],
-        "train_step_device_ms": device_ms,
-        "device_busy_share": busy,
         "launches": {**per_call, "run": {k: kernels.launches[k] for k in KERNELS}},
         "card": card_name,
         "torch": torch.__version__,

@@ -12,9 +12,6 @@ torch.cuda.Event pairs around the step (train.py:70-71,108,175). Here:
   flag check.
 * `trace(log_dir)`: a Chrome trace of the block, and `spans.json`, each
   span's host and device time per outermost call (`device_table`).
-* `profile_calls` and `device_busy_share`: the device time of a few calls
-  by kernel and the device's busy share (the bench and chip_smoke.py read
-  them).
 * `host_syncs`: the calls that make the host wait for the card.
 """
 from __future__ import annotations
@@ -262,52 +259,6 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
     with open(os.path.join(log_dir, "spans.json"), "w") as f:
         json.dump(device_table(prof.events()), f, indent=1)
-
-
-def profile_calls(fn, n: int = 3, top: int = 12):
-    """Where a call's time goes on the current CUDA device: torch.profiler
-    over n calls of fn(), the last ending in `torch.cuda.synchronize()`.
-    Returns (wall ms per call under the profiler, device ms per call,
-    device events per call, [(kernel, device ms per call, launches per
-    call)] for the `top` kernels by device time), or None when the profiler
-    saw no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    # Only the device's own events (kernels, copies, fills): an operator's
-    # row repeats the time of the kernels it launched, and a span's
-    # device-side annotation the time of the kernels it encloses.
-    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and not getattr(e, "is_user_annotation", False)
-            and not e.key.startswith(SPAN_PREFIX)]
-    if not rows:
-        return None
-    rows.sort(key=lambda r: -r[1])
-    return wall_ms, sum(r[1] for r in rows), sum(r[2] for r in rows), rows[:top]
-
-
-def device_busy_share(fn, n: int = 3) -> tuple:
-    """(device ms per call of fn(), its share of the call's wall time): the
-    device time of every kernel and copy over n calls under torch.profiler
-    (`profile_calls`) over those calls' wall time, both under the profiler.
-    Kernel tracing stretches the device time of a call that keeps the
-    device busy (a replayed CUDA graph), so a wall time measured without
-    the profiler can fall below it; the profiler's host overhead makes the
-    share understate a host-bound call's. (None, None) when the profiler saw
-    no device time."""
-    breakdown = profile_calls(fn, n)
-    if breakdown is None:
-        return None, None
-    return breakdown[1], breakdown[1] / breakdown[0]
 
 
 def host_syncs(fn) -> list[str]:

@@ -679,15 +679,17 @@ def _hold_kernel_to_plain(data, gid, starts, stops, gx, tile, *, tolerance=True,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", CARD_TILES, ids=CARD_IDS)
-def test_backward_kernel_at_tile0_on_card(cuda_device, tile):
-    """The slab branch: a small make_scene frame's tiles from tile0 =
-    grid_x + 1 (not the start of a row) through kernel B at that tile0, held
-    as _hold_kernel_to_plain holds it, and bit-equal to the whole frame's
-    kernel on the same cotangents in the slab's columns."""
-    from test_torch_composite import _scene_frame
+@pytest.mark.parametrize("frame, tile", [
+    *(pytest.param("scene", t, id=i) for t, i in zip(CARD_TILES, CARD_IDS)),
+    pytest.param("bench", (32, 16), id="32x16-bench")])
+def test_backward_kernel_at_tile0_on_card(cuda_device, frame, tile):
+    """The slab branch: a small make_scene frame's (or the bench frame's)
+    tiles from tile0 = grid_x + 1 (not the start of a row) through kernel B
+    at that tile0, held as _hold_kernel_to_plain holds it, and bit-equal to
+    the whole frame's kernel on the same cotangents in the slab's columns."""
+    from test_torch_composite import FRAMES
 
-    data, gid, starts, stops, gx = _scene_frame(tile, cuda_device)
+    data, gid, starts, stops, gx = FRAMES[frame](tile, cuda_device)
     t0 = gx + 1
     assert t0 % gx
     got, args = _hold_kernel_to_plain(data, gid, starts[t0:].contiguous(),
@@ -702,13 +704,22 @@ def test_backward_kernel_at_tile0_on_card(cuda_device, tile):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", CARD_TILES, ids=CARD_IDS)
-def test_backward_kernel_matches_plain_on_card(cuda_device, tile):
+@pytest.mark.parametrize("frame, tile, offsets", [
+    *(pytest.param("scene", t, False, id=i) for t, i in zip(CARD_TILES, CARD_IDS)),
+    pytest.param("bench", (32, 16), False, id="32x16-bench"),
+    pytest.param("bench", (16, 16), False, id="16x16-bench"),
+    pytest.param("bench", (32, 16), True, id="32x16-bench_offsets")])
+def test_backward_kernel_matches_plain_on_card(cuda_device, frame, tile, offsets):
     """On a small make_scene frame at t = 2.5 (_hold_kernel_to_plain); at
-    8x4 and 24x4 a warp's pixels span rows (24x4: a warp wraps)."""
-    from test_torch_composite import _scene_frame
+    8x4 and 24x4 a warp's pixels span rows (24x4: a warp wraps). The bench
+    frame is the cells' full-width frame at the tiles they launch
+    (test_torch_composite._bench_frame), also with bench_frame's subpixel
+    offsets."""
+    from test_torch_composite import FRAMES, frame_offsets
 
-    _hold_kernel_to_plain(*_scene_frame(tile, cuda_device), tile)
+    data, gid, starts, stops, gx = FRAMES[frame](tile, cuda_device)
+    _hold_kernel_to_plain(data, gid, starts, stops, gx, tile,
+                          offsets=frame_offsets(offsets, gx, starts.shape[0], tile, cuda_device))
 
 
 @pytest.mark.cuda

@@ -244,6 +244,40 @@ def _scene_frame(tile, device):
     return data.detach(), gid, binning.tile_start, binning.tile_stop, gx
 
 
+def _bench_frame(tile, device):
+    """The bench frame (bench_frame.pack_frame: 110k splats at 1352x1014,
+    t = 1) as the benchmark's cells bin it: n3v's 32x16 tiles with the
+    packed key, n3v_4dgs's 16x16 with the exact depth sort, into the
+    capacity bench_scene sizes at that config."""
+    from ex4dgs_tpu_torch.bench_frame import bench_scene, pack_frame
+    from ex4dgs_tpu_torch.kernel_config import KernelConfig
+
+    exact = tuple(tile) == (16, 16)
+    scene = bench_scene(device, kernel_cfg=KernelConfig(tile_x=tile[0], tile_y=tile[1],
+                                                        exact_sort=exact))
+    f = pack_frame(scene, *tile, exact_sort=exact)
+    return f.data, f.gid, f.starts, f.stops, f.grid_x
+
+
+def frame_offsets(offsets, gx, num_tiles, tile, device):
+    """With `offsets`, the bench frame's subpixel offsets
+    (bench_frame.bench_offsets) cut into per-tile blocks; None without."""
+    from ex4dgs_tpu_torch.bench_frame import bench_offsets
+
+    if not offsets:
+        return None
+    return trc.tile_offsets(bench_offsets(device), gx, num_tiles // gx, *tile)
+
+
+FRAMES = {"scene": _scene_frame, "adversarial": _adversarial_frame, "bench": _bench_frame}
+CARD_TILES = [(32, 16), (16, 16), (8, 4), (24, 4)]
+# (frame, tile) on the card: the small frames at every tile shape, the bench
+# frame at the two the cells launch
+CARD_FRAMES = [pytest.param(f, t, id=f"{t[0]}x{t[1]}-{f}") for t in CARD_TILES
+               for f in ("scene", "adversarial")] + [
+    pytest.param("bench", t, id=f"{t[0]}x{t[1]}-bench") for t in CARD_TILES[:2]]
+
+
 def test_adversarial_frame_is_meaningful():
     """The adversarial frame's near-threshold splats sit on both sides of
     the alpha floor, and the plain version composites it (on the CPU)."""
@@ -266,9 +300,7 @@ def test_adversarial_frame_is_meaningful():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("frame", ["scene", "adversarial"])
-@pytest.mark.parametrize("tile", [(32, 16), (16, 16), (8, 4), (24, 4)],
-                         ids=["32x16", "16x16", "8x4", "24x4"])
+@pytest.mark.parametrize("frame, tile", CARD_FRAMES)
 def test_kernel_at_tile0_matches_plain_on_card(cuda_device, frame, tile):
     """The slab branch: the frame's tiles from tile0 = grid_x + 1 (a first
     tile that does not start a row, so that a mix-up of the global and the
@@ -276,8 +308,7 @@ def test_kernel_at_tile0_matches_plain_on_card(cuda_device, frame, tile):
     tile0, against the plain version at the same tile0 (as
     test_kernel_matches_plain_on_card), bit-equal to the whole frame's
     kernel rows, and unlike the kernel at tile0 = 0 on the same ranges."""
-    make = _scene_frame if frame == "scene" else _adversarial_frame
-    data, gid, starts, stops, gx = make(tile, cuda_device)
+    data, gid, starts, stops, gx = FRAMES[frame](tile, cuda_device)
     t0 = gx + 1
     assert t0 % gx and t0 < starts.shape[0]
     kw = dict(grid_x=gx, tile_x=tile[0], tile_y=tile[1], track_idx=True)
@@ -299,11 +330,11 @@ def test_kernel_at_tile0_matches_plain_on_card(cuda_device, frame, tile):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("frame", ["scene", "adversarial"])
-@pytest.mark.parametrize("tile", [(32, 16), (16, 16), (8, 4), (24, 4)],
-                         ids=["32x16", "16x16", "8x4", "24x4"])
+@pytest.mark.parametrize("frame, tile, offsets", [
+    pytest.param(*p.values, False, id=p.id) for p in CARD_FRAMES] + [
+    pytest.param("bench", (32, 16), True, id="32x16-bench_offsets")])
 @pytest.mark.parametrize("track_idx", [True, False])
-def test_kernel_matches_plain_on_card(cuda_device, frame, tile, track_idx):
+def test_kernel_matches_plain_on_card(cuda_device, frame, tile, offsets, track_idx):
     """csrc/composite_fwd.cu against composite_tiles_plain on the same
     packed buffer, on the card: accum and tfinal within 2e-5 (the same
     per-pair arithmetic; the kernel accumulates features with fused
@@ -312,11 +343,12 @@ def test_kernel_matches_plain_on_card(cuda_device, frame, tile, track_idx):
     least 1/255 of itself; trc.tfinal_rel_err), ids on >= 99.9% of pixels,
     and two launches bit-equal. The adversarial frame puts splats across
     warp rows, thin ellipses and opacities on the alpha floor; at 24x4 a
-    warp wraps across two rows."""
-    make = _scene_frame if frame == "scene" else _adversarial_frame
-    data, gid, starts, stops, gx = make(tile, cuda_device)
+    warp wraps across two rows. The bench frame is the cells' full-width
+    frame, also with bench_frame's subpixel offsets."""
+    data, gid, starts, stops, gx = FRAMES[frame](tile, cuda_device)
     args = (data, gid, starts, stops)
-    kw = dict(grid_x=gx, tile_x=tile[0], tile_y=tile[1], track_idx=track_idx)
+    kw = dict(grid_x=gx, tile_x=tile[0], tile_y=tile[1], track_idx=track_idx,
+              offsets=frame_offsets(offsets, gx, starts.shape[0], tile, cuda_device))
     before = kernels.launches["composite_fwd"]
     got = trc.composite_tiles_fwd(*args, **kw)
     again = trc.composite_tiles_fwd(*args, **kw)

@@ -462,22 +462,35 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "identity", "floor", "far"])
+@pytest.mark.parametrize("kind", ["random", "identity", "floor", "far", "cell"])
 def test_kernels_match_the_plain_versions_on_the_card(cuda_device, kind):
     """Forward and backward kernels against slice4d_plain and
     slice4d_bwd_plain in float32 on the card, at 100,003 Gaussians (not a
-    multiple of the block), every degree pair of the last band, two
-    launches bit-equal. The kernels fuse what the plain versions round, so
-    they agree to SLICE_RTOL of each output's largest value."""
+    multiple of the block) and, in `cell`, on the n3v_4dgs cell's model
+    (gsbench's draw of gsbench/configs/n3v_4dgs.json: 500,000 Gaussians in
+    503,808 rows), every degree pair of the last band, two launches
+    bit-equal. The kernels fuse what the plain versions round, so they
+    agree to SLICE_RTOL of each output's largest value; the 0.05 marginal
+    test may flip at a rounding in 2 rows per 100,000."""
     dev = cuda_device
-    P = 100_003
-    p = {k: v.float().to(dev) for k, v in _params(P, 81, kind).items()}
-    mask = _mask(P, 81).to(dev)
-    campos = torch.tensor([0.3, -0.5, -4.0], device=dev)
+    if kind == "cell":
+        import json
+
+        from gsbench.families import fourdgs
+
+        cfg = json.loads((ROOT / "gsbench" / "configs" / "n3v_4dgs.json").read_text())
+        sc = fourdgs.make_params(cfg, 18, dev)
+        p, mask = sc["params"], sc["mask"]
+        at, campos = 3.7, torch.tensor([1.5, 4.0, -11.5], device=dev)
+    else:
+        p = {k: v.float().to(dev) for k, v in _params(100_003, 81, kind).items()}
+        mask = _mask(100_003, 81).to(dev)
+        at, campos = 5.0, torch.tensor([0.3, -0.5, -4.0], device=dev)
+    P = mask.shape[0]
     g = torch.Generator(device=dev).manual_seed(3)
     cots = [torch.randn(s, generator=g, device=dev) for s in ((P, 3), (P, 6), (P,), (P, 3))]
     for deg, deg_t in ((3, 2), (2, 1), (0, 0)):
-        args = ([p[k] for k in S.PARAMS], torch.tensor(5.0, device=dev), campos,
+        args = ([p[k] for k in S.PARAMS], torch.tensor(at, device=dev), campos,
                 torch.tensor(deg, dtype=torch.int32, device=dev),
                 torch.tensor(deg_t, dtype=torch.int32, device=dev))
         params, t, cp, d, dt_ = args
@@ -487,7 +500,7 @@ def test_kernels_match_the_plain_versions_on_the_card(cuda_device, kind):
         for a, b, c in zip(got, want, again):
             assert torch.equal(a, c)
             if a.dtype == torch.bool:
-                assert int((a != b).sum()) <= 2  # the 0.05 threshold, at a rounding
+                assert int((a != b).sum()) <= max(2, P // 50_000)
             else:
                 assert _rel(a, b) < SLICE_RTOL, (kind, deg, deg_t, _rel(a, b))
         gk = kernels.slice4d_bwd(*params, t, cp, d, dt_, *cots, span=SPAN)

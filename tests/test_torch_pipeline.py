@@ -30,7 +30,7 @@ reads it needs gone, against the JAX package.
   model and state come back bit for bit, as train_step's do.
 
 That the step path makes no host read is checked on the card:
-tests/test_torch_sync.py and chip_smoke.py phase 8.
+tests/test_torch_sync.py.
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_pipeline.py
 """
@@ -211,7 +211,7 @@ def test_pipelined_overflow_matches_jax_pipeline(textured_scene, monkeypatch):
                                    rtol=1e-5, err_msg=k)
 
 
-# chip_smoke.py's TRAIN_SCHEDULE (phase 12), with iterations past the
+# chip_smoke.py's TRAIN_SCHEDULE (its trainer phase), with iterations past the
 # prune_invisible gate (3000)
 DUE_SCHEDULE = dict(iterations=3300, densify_from_iter=20, densification_interval=30,
                     extract_from_iter=20, progressive_growing_steps=40,

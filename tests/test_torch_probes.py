@@ -243,12 +243,15 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("label", ["aligned-256", "unaligned"])
-def test_unaligned_kernel_matches_plain_on_card(cuda_device, label):
+@pytest.mark.parametrize("label, n, t", [
+    *(pytest.param(label, 1 << 16, 512, id=label) for label in ("aligned-256", "unaligned")),
+    *(pytest.param(label, unaligned.N, unaligned.T, id=f"{label}-probe_size")
+      for label in ("aligned-256", "unaligned"))])
+def test_unaligned_kernel_matches_plain_on_card(cuda_device, label, n, t):
     """csrc/probe_unaligned.cu against the plain gather, every window
-    exactly, two launches bit-equal."""
-    src = unaligned.make_src(1 << 16, cuda_device)
-    offs = torch.from_numpy(unaligned.offset_sets(1 << 16, 512)[label]).to(cuda_device)
+    exactly, two launches bit-equal; small, and at the probe's own size."""
+    src = unaligned.make_src(n, cuda_device)
+    offs = torch.from_numpy(unaligned.offset_sets(n, t)[label]).to(cuda_device)
     before = kernels.launches["probe_unaligned"]
     got = kernels.probe_unaligned(src, offs)
     again = kernels.probe_unaligned(src, offs)
@@ -258,12 +261,13 @@ def test_unaligned_kernel_matches_plain_on_card(cuda_device, label):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["normal", "ones"])
-def test_outspec_kernels_match_plain_on_card(cuda_device, kind):
+@pytest.mark.parametrize("kind, t", [
+    *(pytest.param(kind, 40, id=kind) for kind in ("normal", "ones")),
+    *(pytest.param(kind, outspec.T, id=f"{kind}-probe_size") for kind in ("normal", "ones"))])
+def test_outspec_kernels_match_plain_on_card(cuda_device, kind, t):
     """csrc/probe_outspec.cu against the plain versions: a-c exactly, d and
     e within 1e-6 of each tile's sum of |x| (exactly on all-ones inputs),
-    two launches bit-equal."""
-    t = 40
+    two launches bit-equal; at 40 tiles and at the probe's T."""
     ins = {k: [torch.from_numpy(x).to(cuda_device) for x in v]
            for k, v in _outspec_inputs(kind).items()}
     ins = {k: [torch.cat([x] * (t // T_TILES + 1))[:t].contiguous() for x in v]
