@@ -1163,7 +1163,10 @@ def surface_check(dev, card: str) -> None:
         t0 = time.perf_counter()
         stats = []
         for c in cams:
-            i0, i4 = frame(c, 0.0), frame(c, 4.0)
+            i0 = frame(c, 0.0)
+            # the next render of the same key overwrites a replayed result
+            i0 = i0._replace(render=i0.render.clone(), binning_total=i0.binning_total.clone())
+            i4 = frame(c, 4.0)
             stats.append((bool(torch.isfinite(i0.render).all() and torch.isfinite(i4.render).all()),
                           float(i0.render.mean()), float(i4.render.mean()),
                           float((i0.render - i4.render).abs().max()),
@@ -1753,7 +1756,7 @@ def fourdgs_phase(dev, card: str) -> None:
     """The fourdgs phase (see the module's docstring)."""
     from ex4dgs_tpu_torch import kernels
     from ex4dgs_tpu_torch.synthetic import ring_cameras
-    from ex4dgs_tpu_torch.train import step as step_mod
+    from ex4dgs_tpu_torch.runtime import graphs
     from gsbench.families import fourdgs
 
     cell = load_cell("n3v_4dgs")
@@ -1763,7 +1766,7 @@ def fourdgs_phase(dev, card: str) -> None:
     cams = ring_cameras(8, 12.0, w, h, device=dev)
     g = torch.Generator(device=dev).manual_seed(19)
     gts = [torch.rand((h, w, 3), generator=g, device=dev) for _ in range(n)]
-    step_mod._GRAPHS.clear()
+    graphs.release()
     kernels.reset_launches()
     kernels.reset_graph_calls()
     outs = []
@@ -1777,7 +1780,7 @@ def fourdgs_phase(dev, card: str) -> None:
     calls = kernels.graph_call_counts(dev)
     launched = {k: kernels.launches[k] for k in ("slice4d_fwd", "slice4d_bwd", "pack_vjp")}
     capacity = carried["statics"].capacity
-    step_mod._GRAPHS.clear()
+    graphs.release()
     log(f"# train_step_4d x3 at {w}x{h}, {n} views, the n3v_4dgs cell's model (loss, nan, "
         f"largest view's instances of {capacity}, host ms): {outs}; graph calls {calls}; "
         f"launches {launched}; {card}")
@@ -1796,6 +1799,7 @@ def pack_inputs(render_fn) -> tuple:
     (ops.rasterize_cuda.PackSorted): a binning exactly as the render and
     training paths build it."""
     from ex4dgs_tpu_torch.ops import rasterize_cuda as trc
+    from ex4dgs_tpu_torch.runtime import graphs
 
     seen = []
     apply = trc.PackSorted.apply
@@ -1805,6 +1809,7 @@ def pack_inputs(render_fn) -> tuple:
         return apply(rows, order, cum, counts, slot)
 
     trc.PackSorted.apply = spy
+    graphs.release("render")  # a render's first call with its key runs eagerly: spied on
     try:
         with torch.no_grad():
             render_fn()

@@ -17,7 +17,9 @@ graph captures runs only when the graph is replayed, so it is counted then:
 the capture's launches go to the tally of `capturing()`, and `replayed`
 adds that tally once per replay. `graph_calls` counts, per device, how
 `train_step` ran: eagerly, by a capture, and by a replay of its graph (a
-capture's call replays the graph too); `reset_graph_calls` clears it.
+capture's call replays the graph too); `render_graph_calls` counts the same
+of a no-gradient `render`'s graph; `graph_call_counts` reads either, and
+`reset_graph_calls` clears both.
 """
 from __future__ import annotations
 
@@ -53,6 +55,8 @@ SOURCES = {
 launches: dict[str, int] = {fn: 0 for fns in SOURCES.values() for fn in fns}
 _tallies: list[dict[str, int]] = []  # launches of the graphs being captured
 graph_calls: dict[str, dict[str, int]] = {}  # device -> {"eager", "captures", "replays"}
+render_graph_calls: dict[str, dict[str, int]] = {}  # the same, of render's graph
+_GRAPH_CALLS = {"train_step": graph_calls, "render": render_graph_calls}
 build_logs: dict[str, str] = {}  # source name -> nvcc's output (ptxas usage)
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -149,21 +153,24 @@ def _device_name(device) -> str:
     return str(dev)
 
 
-def graph_call_counts(device) -> dict[str, int]:
-    """A copy of `graph_calls` of `device` (zeros where none ran)."""
-    return dict(graph_calls.get(_device_name(device), {"eager": 0, "captures": 0, "replays": 0}))
+def graph_call_counts(device, entry: str = "train_step") -> dict[str, int]:
+    """A copy of the graph calls of `entry` ("train_step" or "render") on
+    `device` (zeros where none ran)."""
+    return dict(_GRAPH_CALLS[entry].get(_device_name(device),
+                                        {"eager": 0, "captures": 0, "replays": 0}))
 
 
-def count_graph_call(device, kind: str) -> None:
-    """One train_step on `device` that ran `kind`: "eager", "captures" or
-    "replays"."""
-    calls = graph_calls.setdefault(_device_name(device),
-                                   {"eager": 0, "captures": 0, "replays": 0})
+def count_graph_call(device, kind: str, entry: str = "train_step") -> None:
+    """One call of `entry` ("train_step" or "render") on `device` that ran
+    `kind`: "eager", "captures" or "replays"."""
+    calls = _GRAPH_CALLS[entry].setdefault(_device_name(device),
+                                           {"eager": 0, "captures": 0, "replays": 0})
     calls[kind] += 1
 
 
 def reset_graph_calls() -> None:
-    graph_calls.clear()
+    for calls in _GRAPH_CALLS.values():
+        calls.clear()
 
 
 def _nvcc() -> str:

@@ -31,6 +31,7 @@ from .ops import compositing as comp
 from .ops.rasterize_cuda import composite_blocks, rasterize_tiled_cuda
 from .ops.slice4d import slice4d
 from .parallel import collectives
+from .runtime import graphs
 from .runtime.profiling import span
 
 
@@ -50,17 +51,25 @@ class RenderCamera:
     def from_numpy(cls, view, proj, campos, width, height, tan_fovx, tan_fovy,
                    device=None) -> "RenderCamera":
         """A camera from numpy arrays (e.g. the JAX package's RenderCamera
-        fields via np.asarray). Checks shapes and raises on a mismatch."""
+        fields via np.asarray). Checks shapes and raises on a mismatch. The
+        five fields go up as one packed float32 array (`upload`: pinned, no
+        wait for the device) and are views of that one buffer."""
         dev = resolve_device(device)
         shapes = {"view": (view, (4, 4)), "proj": (proj, (4, 4)), "campos": (campos, (3,)),
                   "tan_fovx": (tan_fovx, ()), "tan_fovy": (tan_fovy, ())}
-        arrs = {}
+        flat = []
         for name, (v, shape) in shapes.items():
             v = np.asarray(v, np.float32)
             if v.shape != shape:
                 raise ValueError(f"camera {name}: shape {v.shape}, expected {shape}")
-            arrs[name] = torch.as_tensor(v.copy(), device=dev)
-        return cls(width=int(width), height=int(height), **arrs)
+            flat.append(v.reshape(-1))
+        packed = upload(np.concatenate(flat), dev)
+        fields, at = {}, 0
+        for name, (_, shape) in shapes.items():
+            n = math.prod(shape)
+            fields[name] = packed[at:at + n].view(shape)
+            at += n
+        return cls(width=int(width), height=int(height), **fields)
 
     @classmethod
     def from_fov(cls, view, proj, campos, width, height, fovx, fovy,
@@ -286,18 +295,73 @@ def composite_projected_slabs(proj: Projected, colors, flow_dirs, cam: RenderCam
     return _slab_result(proj, blocks, total_eff, cam, static_num, kcfg)
 
 
+# render's optional per-Gaussian inputs: a render given any of them runs eagerly
+_PER_GAUSSIAN = ("mean2d_offset", "flow_dirs", "override_color", "subpixel_offset")
+
+
 def render(cam: RenderCamera, model: GaussianModel, cfg: ModelConfig, *, t, bg,
            mode: int = 0, device=None, **kwargs) -> RenderResult:
     """Render the model at timestamp t on `device` (cuda unless told
     otherwise; the model and camera must already be there). With t a host
     number and bg on the device, the render reads nothing back to the
-    host."""
+    host.
+
+    On CUDA a render without gradient (`torch.no_grad`, no stream capture
+    under way) of none of the optional per-Gaussian inputs
+    (`mean2d_offset`, `flow_dirs`, `override_color`, `subpixel_offset`)
+    runs as one CUDA graph (`runtime/graphs.py`, one per card): the first
+    call with a key eagerly, the second captures the render and replays it,
+    later calls stage t, bg and the camera's tensors into the graph's
+    buffers and replay it. The key (`_graph_key`) holds what a capture
+    bakes in: the storage of every model tensor, the camera's size, the
+    model config, mode and every other option. A replay returns the graph's
+    own output tensors, so **the result is overwritten by the next render
+    of the same key on that card**: a caller that keeps it past that copies
+    it. Every other render runs eagerly and returns fresh tensors."""
     with span("ex4dgs.render"):
         dev = resolve_device(device)
         _on(dev, "the model", model.params["xyz"])
-        with span("ex4dgs.temporal"):
-            pts = point_data_at_t(model, cfg, t, mode=mode)
-        return render_points(pts, cam, cfg, bg=bg, device=dev, **kwargs)
+        if (dev.type == "cuda" and not torch.is_grad_enabled()
+                and not torch.cuda.is_current_stream_capturing()
+                and all(kwargs.get(k) is None for k in _PER_GAUSSIAN)):
+            return _graphed_render(cam, model, cfg, t, bg, mode, graphs.card(dev), kwargs)
+        return _render_at(cam, model, cfg, t, bg, mode, dev, kwargs)
+
+
+def _render_at(cam: RenderCamera, model: GaussianModel, cfg: ModelConfig, t, bg, mode: int,
+               dev: torch.device, kwargs: dict) -> RenderResult:
+    """render's work: the temporal query at t (a host number, or a 0-d
+    tensor on dev, as a graph stages it), then render_points."""
+    with span("ex4dgs.temporal"):
+        pts = point_data_at_t(model, cfg, t, mode=mode)
+    return render_points(pts, cam, cfg, bg=bg, device=dev, **kwargs)
+
+
+def _graph_key(cam: RenderCamera, model: GaussianModel, cfg: ModelConfig, bg, mode: int,
+               kwargs: dict) -> tuple:
+    """What a capture of render bakes in: the storage of every model
+    tensor, the camera's size, the config, mode, every option (the kernel
+    config validated, the default for None) and the staged inputs' types
+    and shapes; not the values of t, bg and the camera's tensors."""
+    opts = {**kwargs, "kernel_cfg": (kwargs.get("kernel_cfg") or KernelConfig()).validate()}
+    inputs = [getattr(cam, f) for f in graphs.CAMERA_TENSORS] + [bg]
+    return (graphs.state_key(model), cam.width, cam.height, cfg, mode,
+            tuple(sorted(opts.items())), tuple((x.device, x.dtype, x.shape) for x in inputs))
+
+
+def _graphed_render(cam: RenderCamera, model: GaussianModel, cfg: ModelConfig, t, bg,
+                    mode: int, dev: torch.device, kwargs: dict) -> RenderResult:
+    """render as the graph of its key on the card dev (`graphs.run`): t,
+    bg and the camera's tensors are its staged inputs."""
+    bg = upload(bg, dev, torch.float32)
+
+    def body(inputs, scalars):
+        c = dataclasses.replace(cam, **dict(zip(graphs.CAMERA_TENSORS, inputs)))
+        return _render_at(c, model, cfg, scalars[0], inputs[-1], mode, dev, kwargs)
+
+    inputs = [getattr(cam, f) for f in graphs.CAMERA_TENSORS] + [bg]
+    return graphs.run("render", dev, _graph_key(cam, model, cfg, bg, mode, kwargs), inputs, [t],
+                      {}, body, lambda out: out)
 
 
 def render4d(cam: RenderCamera, model: Gaussian4DModel, cfg: Model4DConfig, *, t, bg,

@@ -26,18 +26,20 @@ it. The key is what a capture bakes in: the statics, the branches the
 iteration decides on the host (`iteration_gates`), the camera's size, the
 inputs' shapes and the storage of every tensor of the model and optimizer
 state. The timestamp and the learning rates are staged on the device each
-call (`_stage_scalars`), so the temporal query gathers its keyframes there.
+call (`runtime/graphs.py::stage_scalars`), so the temporal query gathers
+its keyframes there.
 The model and optimizer state are updated in place (the gated result is
 written back into their tensors), eagerly and in the graph alike, so the
 state is never held twice; the small outputs are fresh tensors each call.
-One graph is kept per device: a new key releases the old graph and its
-memory. On the CPU the step runs eagerly and returns new state.
+One step graph is kept per card: a new key releases the old graph and its
+memory, and the card's render graph too. On the CPU the step runs eagerly
+and returns new state.
 
 `train_step_4d` is the step of the second model family, 4D Gaussian
 Splatting (Yang et al.): a batch of views, each rendered at its own time,
 the mean of their losses, one backward and Adam. It runs as one CUDA graph
-through the same machinery (`_run_graphed`, `_capture`, `_stage_scalars`),
-its key (`_graph_key_4d`) holding the number and sizes of the views.
+through the same machinery (`_run_graphed`, on `runtime/graphs.py`), its
+key (`_graph_key_4d`) holding the number and sizes of the views.
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import kernels, resolve_device, scalar_on, upload
+from .. import resolve_device, scalar_on, upload
 from ..kernel_config import KernelConfig
 from ..models.config import Model4DConfig, ModelConfig, Optimization4DConfig, OptimizationConfig
 from ..models.optimizer import (RAdamState, adam_update, fourdgs_lrs, group_lrs, mask_grads,
@@ -55,6 +57,7 @@ from ..models.state import GaussianModel
 from ..models.state4d import Gaussian4DModel
 from ..ops.losses import combined_loss, l1_loss, psnr, ssim
 from ..rendering import RenderCamera, RenderResult, render, render4d
+from ..runtime import graphs
 from ..runtime.profiling import span
 
 
@@ -340,60 +343,11 @@ def train_step(model: GaussianModel, opt_state: RAdamState, cam: RenderCamera, g
 # the step as a CUDA graph
 # ---------------------------------------------------------------------------
 
-_CAMERA_TENSORS = ("view", "proj", "campos", "tan_fovx", "tan_fovy")
-
-
-class _Graph:
-    """The step of one key on one device: after its eager first call, the
-    static input buffers, the captured graph, its outputs (the small ones:
-    model and state are the caller's) and the kernel launches it records."""
-
-    def __init__(self, key: tuple):
-        self.key = key
-        self.graph = None
-        self.inputs: list[torch.Tensor] | None = None
-        self.scalars: torch.Tensor | None = None
-        self.out = None
-        self.launches: dict[str, int] = {}
-
-
-_GRAPHS: dict[torch.device, _Graph] = {}  # at most one per device
-_CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
-
-
-def _state_key(obj) -> tuple:
-    """Every tensor of a model or an optimizer state by field and name, with
-    what a graph captured on it bakes in: its address, type and layout."""
-    key = []
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        for name, x in (sorted(v.items()) if isinstance(v, dict) else [(None, v)]):
-            key.append((f.name, name, x.data_ptr(), x.dtype, x.shape, x.stride())
-                       if isinstance(x, torch.Tensor) else (f.name, name, x))
-    return tuple(key)
-
-
 def _graph_key(model, opt_state, cam, gt, bg, iteration, statics) -> tuple:
-    inputs = [getattr(cam, f) for f in _CAMERA_TENSORS] + [gt, bg]
+    inputs = [getattr(cam, f) for f in graphs.CAMERA_TENSORS] + [gt, bg]
     return (statics, iteration_gates(statics.opt, iteration), cam.width, cam.height,
             tuple((x.device, x.dtype, x.shape) for x in inputs),
-            _state_key(model), _state_key(opt_state))
-
-
-def _stage_scalars(ts, lrs: dict, out: torch.Tensor) -> torch.Tensor:
-    """out [len(ts) + len(lrs)] on the device <- the times ts (one t, or a
-    list of them) and the rates, in float32 (the host values' bits as the
-    eager kernels would round them): one pinned copy that does not block,
-    and a copy on the device of each t that is there."""
-    ts = list(ts) if isinstance(ts, (list, tuple)) else [ts]
-    on_device = [isinstance(t, torch.Tensor) and t.device.type != "cpu" for t in ts]
-    host = torch.tensor([0.0 if dev_t else float(t) for t, dev_t in zip(ts, on_device)]
-                        + [float(v) for v in lrs.values()], dtype=torch.float32)
-    upload(host, out.device, out=out)
-    for i, (t, dev_t) in enumerate(zip(ts, on_device)):
-        if dev_t:
-            out[i].copy_(t)
-    return out
+            graphs.state_key(model), graphs.state_key(opt_state))
 
 
 def _rates(scalars: torch.Tensor, lrs: dict, first: int = 1) -> dict:
@@ -401,18 +355,13 @@ def _rates(scalars: torch.Tensor, lrs: dict, first: int = 1) -> dict:
     return {name: scalars[i] for i, name in enumerate(lrs, first)}
 
 
-def _card(dev: torch.device) -> torch.device:
-    """dev with its index: the graphs are kept per card."""
-    return torch.device("cuda", torch.cuda.current_device()) if dev.index is None else dev
-
-
 def _graphed_step(model, opt_state, cam, gt, t, bg, iteration: int, lrs: dict,
                   statics: StepStatics, dev: torch.device) -> StepOutputs:
-    dev = _card(dev)
+    dev = graphs.card(dev)
     key = _graph_key(model, opt_state, cam, gt, bg, iteration, statics)
 
     def body(inputs, scalars):
-        c = dataclasses.replace(cam, **dict(zip(_CAMERA_TENSORS, inputs)))
+        c = dataclasses.replace(cam, **dict(zip(graphs.CAMERA_TENSORS, inputs)))
         return _step(model, opt_state, c, inputs[-2], scalars[0], scalars[0], inputs[-1],
                      iteration, _rates(scalars, lrs), statics, dev, in_place=True)
 
@@ -422,66 +371,19 @@ def _graphed_step(model, opt_state, cam, gt, t, bg, iteration: int, lrs: dict,
                            visibility=o.visibility.clone(),
                            binning_total=o.binning_total.clone(), nan_flag=o.nan_flag.clone())
 
-    inputs = [getattr(cam, f) for f in _CAMERA_TENSORS] + [gt, bg]
+    inputs = [getattr(cam, f) for f in graphs.CAMERA_TENSORS] + [gt, bg]
     return _run_graphed(dev, key, inputs, [t], lrs, body, small)
 
 
 def _run_graphed(dev: torch.device, key: tuple, inputs: list, ts: list, lrs: dict, body, small):
-    """A step as one CUDA graph on the card `dev`, shared by train_step and
-    train_step_4d. body(inputs, scalars) runs the step's work on the input
-    tensors (the caller's, or the graph's static copies of them) and the
-    staged scalars (`_stage_scalars` of ts and lrs), updating the state in
-    place, and returns its outputs; small(outputs) gives a replay's result
-    from the captured outputs. The first call with a key runs body eagerly,
-    the second captures it and replays, later calls stage and replay."""
-    g = _GRAPHS.get(dev)
-    if g is None or g.key != key:
-        _GRAPHS.pop(dev, None)  # releases the old graph and its pool
-        scalars = _stage_scalars(ts, lrs, torch.empty(len(ts) + len(lrs), device=dev))
-        out = body(inputs, scalars)
-        _GRAPHS[dev] = _Graph(key)
-        kernels.count_graph_call(dev, "eager")
-        return out
-    with span("ex4dgs.graph.stage"):
-        if g.graph is None:
-            g.inputs = [torch.empty_like(x) for x in inputs]
-            g.scalars = torch.empty(len(ts) + len(lrs), device=dev)
-        for static, x in zip(g.inputs, inputs):
-            static.copy_(x)
-        _stage_scalars(ts, lrs, g.scalars)
-    if g.graph is None:
-        _capture(g, dev, lambda: body(g.inputs, g.scalars))
-    with span("ex4dgs.graph.replay"):
-        g.graph.replay()
-        kernels.replayed(g.launches)
-        kernels.count_graph_call(dev, "replays")
-        return small(g.out)
-
-
-def _capture(g: _Graph, dev: torch.device, run) -> None:
-    """Capture run() (the step on g's static inputs and the caller's state)
-    on a side stream ordered after the current one by events: no
-    synchronize, so the capture reads nothing back either. Nothing runs
-    until a replay. g keeps the outputs but the state, which is the
-    caller's."""
-    if dev not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
-    stream = _CAPTURE_STREAMS[dev]
-    current = torch.cuda.current_stream(dev)
-    stream.wait_stream(current)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.device(dev), torch.cuda.stream(stream), kernels.capturing() as tally:
-        # thread_local: another thread's CUDA calls (the trainer's prefetcher)
-        # may go on while this one captures
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            out = run()
-        finally:
-            graph.capture_end()
-    current.wait_stream(stream)
-    g.graph, g.launches = graph, tally
-    g.out = out._replace(model=None, opt_state=None)
-    kernels.count_graph_call(dev, "captures")
+    """A step as one CUDA graph on the card `dev` (`graphs.run`, entry
+    "train_step"), shared by train_step and train_step_4d: the graph keeps
+    the small outputs (model and state are the caller's), small(outputs)
+    gives a replay's result, and a new key releases the card's render graph
+    too."""
+    return graphs.run("train_step", dev, key, inputs, ts, lrs, body, small,
+                      kept=lambda out: out._replace(model=None, opt_state=None),
+                      releases=("render",))
 
 
 # ---------------------------------------------------------------------------
@@ -598,13 +500,14 @@ def train_step_4d(model: Gaussian4DModel, adam_state: RAdamState, cams, gts, ts,
         if dev.type != "cuda":
             return _step4d(model, adam_state, cams, gts, ts, bg, iteration, lrs, statics, dev,
                            in_place=False)
-        dev = _card(dev)
+        dev = graphs.card(dev)
         key = _graph_key_4d(model, adam_state, cams, gts, bg, iteration, statics)
         n = len(cams)
 
         def body(inputs, scalars):
-            k = len(_CAMERA_TENSORS)
-            views = [dataclasses.replace(c, **dict(zip(_CAMERA_TENSORS, inputs[k * i:k * i + k])))
+            k = len(graphs.CAMERA_TENSORS)
+            views = [dataclasses.replace(c, **dict(zip(graphs.CAMERA_TENSORS,
+                                                       inputs[k * i:k * i + k])))
                      for i, c in enumerate(cams)]
             images = inputs[k * n:k * n + n]
             return _step4d(model, adam_state, views, images, [scalars[i] for i in range(n)],
@@ -617,7 +520,7 @@ def train_step_4d(model: Gaussian4DModel, adam_state: RAdamState, cams, gts, ts,
                                  binning_total=o.binning_total.clone(),
                                  nan_flag=o.nan_flag.clone())
 
-        inputs = [getattr(c, f) for c in cams for f in _CAMERA_TENSORS] + gts + [bg]
+        inputs = [getattr(c, f) for c in cams for f in graphs.CAMERA_TENSORS] + gts + [bg]
         return _run_graphed(dev, key, inputs, ts, lrs, body, small)
 
 
@@ -625,8 +528,8 @@ def _graph_key_4d(model, adam_state, cams, gts, bg, iteration, statics) -> tuple
     """What a capture of train_step_4d bakes in: the statics, whether the
     statistics accumulate, the number and sizes of the views, the inputs'
     shapes and the storage of every tensor of the model and Adam state."""
-    inputs = [getattr(c, f) for c in cams for f in _CAMERA_TENSORS] + list(gts) + [bg]
+    inputs = [getattr(c, f) for c in cams for f in graphs.CAMERA_TENSORS] + list(gts) + [bg]
     return (statics, iteration < statics.opt.densify_until_iter, len(cams),
             tuple((c.width, c.height) for c in cams),
             tuple((x.device, x.dtype, x.shape) for x in inputs),
-            _state_key(model), _state_key(adam_state))
+            graphs.state_key(model), graphs.state_key(adam_state))

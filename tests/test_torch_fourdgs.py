@@ -30,6 +30,7 @@ from ex4dgs_tpu_torch.ops import slice4d as S
 from ex4dgs_tpu_torch.ops.math3d import cov3d_from_scaling_rotation
 from ex4dgs_tpu_torch.ops.projection import project_gaussians
 from ex4dgs_tpu_torch.rendering import default_capacity, render4d
+from ex4dgs_tpu_torch.runtime import graphs
 from ex4dgs_tpu_torch.synthetic import ring_cameras
 from ex4dgs_tpu_torch.train import step as step_mod
 
@@ -544,7 +545,7 @@ def test_train_step_4d_replay_is_bit_equal_to_its_eager_call(cuda_device):
         rows = []
         for i in range(5):
             if eager:
-                step_mod._GRAPHS.clear()
+                graphs.release()
             views = [(i + j) % len(cams) for j in range(4)]
             out = step_mod.train_step_4d(m, st, [cams[j] for j in views], [gts[j] for j in views],
                                          [0.5 + 2.1 * i + 0.7 * j for j in range(4)],
@@ -579,4 +580,4 @@ def test_train_step_4d_replay_is_bit_equal_to_its_eager_call(cuda_device):
         for a, b in zip(wo, go):
             assert torch.equal(a, b)
         assert not bool(go[2]) and math.isfinite(float(go[0]))
-    step_mod._GRAPHS.clear()
+    graphs.release()

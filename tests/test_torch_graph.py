@@ -1,7 +1,9 @@
-"""train_step as one CUDA graph (train/step.py): the graph's bookkeeping and
-key on the CPU, and on the card (marker `cuda`) the graphed step against the
-eager step, bit for bit. The file imports no JAX, so its card cases run
-where only the port is installed:
+"""train_step and a no-gradient render as CUDA graphs (train/step.py,
+rendering.py, runtime/graphs.py): the graphs' bookkeeping and keys on the
+CPU, and on the card (marker `cuda`) the graphed step against the eager
+step and the replayed render against the eager render, bit for bit. The
+file imports no JAX, so its card cases run where only the port is
+installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_graph.py
 """
@@ -18,7 +20,9 @@ from ex4dgs_tpu_torch.models import state4d
 from ex4dgs_tpu_torch.models.config import Model4DConfig, Optimization4DConfig, OptimizationConfig
 from ex4dgs_tpu_torch.models.optimizer import fourdgs_lrs, group_lrs, init_state
 from ex4dgs_tpu_torch.ops import interpolation as tint
-from ex4dgs_tpu_torch.rendering import default_capacity, render
+from ex4dgs_tpu_torch import rendering as R
+from ex4dgs_tpu_torch.rendering import RenderCamera, default_capacity, render
+from ex4dgs_tpu_torch.runtime import graphs
 from ex4dgs_tpu_torch.synthetic import make_scene, ring_cameras
 from ex4dgs_tpu_torch.train import step as S
 
@@ -34,14 +38,17 @@ def cuda_device():
 
 @pytest.fixture
 def counters():
-    """kernels.launches and graph_calls from zero, restored afterwards."""
-    launches, calls = dict(kernels.launches), {k: dict(v) for k, v in kernels.graph_calls.items()}
+    """kernels.launches and the graph calls from zero, restored afterwards."""
+    launches = dict(kernels.launches)
+    calls = [{k: dict(v) for k, v in c.items()}
+             for c in (kernels.graph_calls, kernels.render_graph_calls)]
     kernels.reset_launches()
     kernels.reset_graph_calls()
     yield
     kernels.launches.update(launches)
     kernels.reset_graph_calls()
-    kernels.graph_calls.update(calls)
+    kernels.graph_calls.update(calls[0])
+    kernels.render_graph_calls.update(calls[1])
 
 
 def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -130,7 +137,7 @@ def test_graph_key_holds_what_a_capture_bakes_in():
 def test_stage_scalars_keeps_the_rates_bits():
     opt = OptimizationConfig()
     lrs = group_lrs(opt, 3.0, 1234)
-    got = S._stage_scalars(7.25, lrs, torch.empty(1 + len(lrs)))
+    got = graphs.stage_scalars(7.25, lrs, torch.empty(1 + len(lrs)))
     want = [np.float32(7.25)] + [np.float32(float(v)) for v in lrs.values()]
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), np.array(want, np.float32))
@@ -166,7 +173,7 @@ def test_step_as_the_card_stages_it_is_the_cpu_step(overflow):
     it, t = 700, 7.0  # t on a keyframe boundary (time_shift 8, interval 5)
     want = S.train_step(model, state, cam, gt, t, bg, it, statics, device="cpu")
     lrs = group_lrs(statics.opt, statics.spatial_lr_scale, it)
-    scalars = S._stage_scalars(t, lrs, torch.empty(1 + len(lrs)))
+    scalars = graphs.stage_scalars(t, lrs, torch.empty(1 + len(lrs)))
     got = S._step(m2, s2, cam, gt, scalars[0], scalars[0], bg, it, S._rates(scalars, lrs),
                   statics, torch.device("cpu"), in_place=True)
     w, g, m = _state(want.model, want.opt_state), _state(got.model, got.opt_state), _state(m2, s2)
@@ -235,7 +242,7 @@ def test_graph_key_4d_holds_views_shapes_and_the_adam_state():
 def test_stage_scalars_takes_a_time_per_view():
     lrs = fourdgs_lrs(Optimization4DConfig(), 2.0, 12_000)
     ts = [0.5, torch.tensor(2.25), 7.0, 9.75]
-    got = S._stage_scalars(ts, lrs, torch.empty(len(ts) + len(lrs)))
+    got = graphs.stage_scalars(ts, lrs, torch.empty(len(ts) + len(lrs)))
     want = [0.5, 2.25, 7.0, 9.75] + [np.float32(float(v)) for v in lrs.values()]
     np.testing.assert_array_equal(got.numpy(), np.array(want, np.float32))
     assert list(S._rates(got, lrs, first=4)) == list(lrs)
@@ -257,7 +264,7 @@ def test_step_4d_as_the_card_stages_it_is_the_cpu_step(overflow):
     it, ts = 10_000, [1.5, 4.0, 6.25, 9.0]
     want = S.train_step_4d(model, state, cams, gts, ts, bg, it, statics, device="cpu")
     lrs = fourdgs_lrs(statics.opt, statics.spatial_lr_scale, it)
-    scalars = S._stage_scalars(ts, lrs, torch.empty(len(ts) + len(lrs)))
+    scalars = graphs.stage_scalars(ts, lrs, torch.empty(len(ts) + len(lrs)))
     got = S._step4d(m2, s2, cams, gts, [scalars[i] for i in range(4)], bg, it,
                     S._rates(scalars, lrs, first=4), statics, torch.device("cpu"), in_place=True)
     w, g, m = _state(want.model, want.opt_state), _state(got.model, got.opt_state), _state(m2, s2)
@@ -270,6 +277,143 @@ def test_step_4d_as_the_card_stages_it_is_the_cpu_step(overflow):
     if overflow:
         for k, v in before.items():
             assert _same_bits(g[k], v), k
+
+
+# ---------------------------------------------------------------------------
+# CPU: the render's graph
+# ---------------------------------------------------------------------------
+
+def _render_opts(statics, **changes) -> dict:
+    """render's options as the benchmark's viewer passes them, changed."""
+    return {"capacity": statics.capacity, "scaling_modifier": 1.0, "track_idx": False,
+            "kernel_cfg": None, **changes}
+
+
+_RENDER_KEY_CHANGES = {
+    "model storage": lambda m, cfg, cam, o: (
+        S.clone_state(m, init_state(m.params, device="cpu"))[0], cfg, cam, o),
+    "camera size": lambda m, cfg, cam, o: (m, cfg, ring_cameras(1, 3.0, 32, 48, far=cfg.far,
+                                                                 device="cpu")[0], o),
+    "capacity": lambda m, cfg, cam, o: (m, cfg, cam, {**o, "capacity": 2 * o["capacity"]}),
+    "kernel config": lambda m, cfg, cam, o: (m, cfg, cam, {
+        **o, "kernel_cfg": KernelConfig(tile_x=16, tile_y=16, exact_sort=True)}),
+    "scaling modifier": lambda m, cfg, cam, o: (m, cfg, cam, {**o, "scaling_modifier": 0.5}),
+    "track_idx": lambda m, cfg, cam, o: (m, cfg, cam, {**o, "track_idx": True}),
+    "near": lambda m, cfg, cam, o: (m, cfg, cam, {**o, "near": 0.5}),
+    "model config": lambda m, cfg, cam, o: (m, dataclasses.replace(cfg, kernel_size=0.3), cam,
+                                            o),
+}
+
+
+@pytest.mark.parametrize("change", [*_RENDER_KEY_CHANGES, "mode"])
+def test_render_graph_key_holds_what_a_capture_bakes_in(change):
+    """The render's key changes with each thing a capture bakes in: the
+    model's storage, the camera's size, the capacity, the kernel config,
+    the scaling modifier, track_idx, near, the model config and mode."""
+    model, cfg, cam, _gt, statics = _scene("cpu")
+    opts, bg = _render_opts(statics), torch.zeros(3)
+    key = R._graph_key(cam, model, cfg, bg, 0, opts)
+    if change == "mode":
+        assert key != R._graph_key(cam, model, cfg, bg, 1, opts)
+        return
+    m2, cfg2, cam2, opts2 = _RENDER_KEY_CHANGES[change](model, cfg, cam, opts)
+    assert key != R._graph_key(cam2, m2, cfg2, bg, 0, opts2)
+
+
+def test_render_graph_key_leaves_out_the_staged_values():
+    """Another camera of the same size, another bg and another t give the
+    same key (they are staged), and so do the default kernel config given
+    as None or as KernelConfig()."""
+    model, cfg, cam, _gt, statics = _scene("cpu")
+    opts = _render_opts(statics)
+    key = R._graph_key(cam, model, cfg, torch.zeros(3), 0, opts)
+    other = ring_cameras(3, 4.0, cam.width, cam.height, far=cfg.far, device="cpu")[2]
+    assert not torch.equal(other.view, cam.view)
+    assert key == R._graph_key(other, model, cfg, torch.tensor([0.3, 0.2, 0.9]), 0, opts)
+    assert key == R._graph_key(cam, model, cfg, torch.zeros(3), 0,
+                               {**opts, "kernel_cfg": KernelConfig()})
+
+
+def _same_frame(got, want, track_idx: bool):
+    for f in ("render", "depth", "opticalflow", "acc", "radii", "visibility_filter",
+              "binning_total") + (("dominent_idxs",) if track_idx else ()):
+        assert _same_bits(getattr(got, f), getattr(want, f)), f
+    assert got.static_num == want.static_num
+
+
+@pytest.mark.parametrize("t,track_idx", [(7.0, False), (float(np.nextafter(np.float32(7.0),
+                                                                           np.float32(-1)))
+                                                         , True), (2.5, True)])
+def test_render_as_the_card_stages_it_is_the_cpu_render(t, track_idx):
+    """The render as the card's graph runs it, the camera packed in one
+    buffer, bg and the camera copied into static buffers and t staged as a
+    0-d tensor (the keyframes gathered by a tensor index), gives today's
+    host-t render bit for bit, on and beside a keyframe boundary (time
+    shift 8, interval 5)."""
+    model, cfg, cam, _gt, statics = _scene("cpu")
+    bg = torch.tensor([0.1, 0.2, 0.3])
+    opts = _render_opts(statics, track_idx=track_idx)
+    host = RenderCamera(view=cam.view.clone(), proj=cam.proj.clone(), campos=cam.campos.clone(),
+                        width=cam.width, height=cam.height, tan_fovx=cam.tan_fovx.clone(),
+                        tan_fovy=cam.tan_fovy.clone())
+    want = render(host, model, cfg, t=t, bg=bg, device="cpu", **opts)
+    inputs = [getattr(cam, f) for f in graphs.CAMERA_TENSORS] + [bg]
+    static = [torch.empty_like(x) for x in inputs]
+    for a, x in zip(static, inputs):
+        a.copy_(x)
+    staged = dataclasses.replace(cam, **dict(zip(graphs.CAMERA_TENSORS, static)))
+    scalars = graphs.stage_scalars([t], {}, torch.empty(1))
+    got = R._render_at(staged, model, cfg, scalars[0], static[-1], 0, torch.device("cpu"), opts)
+    _same_frame(got, want, track_idx)
+
+
+def test_camera_from_numpy_packs_one_buffer():
+    """The five fields are views of one float32 buffer, with the values
+    given."""
+    rng = np.random.default_rng(5)
+    view, proj, campos = rng.normal(size=(4, 4)), rng.normal(size=(4, 4)), rng.normal(size=3)
+    cam = RenderCamera.from_numpy(view, proj, campos, 64, 48, 0.5, 0.25, device="cpu")
+    base = cam.view.untyped_storage().data_ptr()
+    for f, v in zip(graphs.CAMERA_TENSORS, (view, proj, campos, 0.5, 0.25)):
+        x = getattr(cam, f)
+        assert x.dtype == torch.float32 and x.untyped_storage().data_ptr() == base, f
+        np.testing.assert_array_equal(x.numpy(), np.asarray(v, np.float32))
+    assert (cam.width, cam.height) == (64, 48)
+
+
+@pytest.mark.parametrize("field", graphs.CAMERA_TENSORS)
+def test_camera_from_numpy_rejects_wrong_shapes(field):
+    good = {"view": np.eye(4), "proj": np.eye(4), "campos": np.zeros(3), "tan_fovx": 0.5,
+            "tan_fovy": 0.5}
+    bad = {**good, field: np.zeros((3, 3) if field in ("view", "proj") else (2,))}
+    with pytest.raises(ValueError, match=f"camera {field}"):
+        RenderCamera.from_numpy(bad["view"], bad["proj"], bad["campos"], 64, 48,
+                                bad["tan_fovx"], bad["tan_fovy"], device="cpu")
+
+
+def test_a_new_step_key_releases_the_render_graph(counters):
+    """A training step's eager call (a new key) drops the card's render
+    graph with its own, and a render's new key leaves the step's graph."""
+    dev = torch.device("cpu")
+    graphs.release()
+    graphs._GRAPHS[("render", dev)] = graphs.Graph(("a render",))
+    graphs._GRAPHS[("train_step", torch.device("cuda", 7))] = graphs.Graph(("elsewhere",))
+
+    def body(inputs, scalars):
+        return scalars.clone()
+
+    out = graphs.run("render", dev, ("another render",), [], [1.5], {}, body, lambda o: o)
+    assert float(out[0]) == 1.5 and ("train_step", torch.device("cuda", 7)) in graphs._GRAPHS
+    graphs._GRAPHS[("train_step", dev)] = graphs.Graph(("a step",))
+    graphs.run("train_step", dev, ("a new step",), [], [2.5], {"xyz": 1e-3}, body,
+               lambda o: o, releases=("render",))
+    assert ("render", dev) not in graphs._GRAPHS
+    assert graphs._GRAPHS[("train_step", dev)].key == ("a new step",)
+    assert ("train_step", torch.device("cuda", 7)) in graphs._GRAPHS  # another card's
+    assert kernels.graph_call_counts(dev, "render") == {"eager": 1, "captures": 0, "replays": 0}
+    assert kernels.graph_call_counts(dev) == {"eager": 1, "captures": 0, "replays": 0}
+    graphs.release()
+    assert not graphs._GRAPHS
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +487,7 @@ def test_graphed_step_is_bit_equal_to_the_eager_step(cuda_device, counters):
             if i == swap_at:
                 m, st = S.clone_state(m, st)
             if eager:
-                S._GRAPHS.clear()  # every call is its key's first: eager
+                graphs.release()  # every call is its key's first: eager
             if i == overflow_at:
                 scales = m.params["scaling"].clone()
                 m.params["scaling"].add_(grow)  # in place: the same key
@@ -360,7 +504,7 @@ def test_graphed_step_is_bit_equal_to_the_eager_step(cuda_device, counters):
         return rows
 
     pack_launches = []  # the pack VJP's count after each call
-    S._GRAPHS.clear()
+    graphs.release()
     eager = run(*S.clone_state(model, init_state(model.params, device=dev)), eager=True)
     kernels.reset_launches()
     kernels.reset_graph_calls()
@@ -384,7 +528,7 @@ def test_graphed_step_is_bit_equal_to_the_eager_step(cuda_device, counters):
         assert not bool(go["nan_flag"]) and math.isfinite(float(go["loss"]))
     # the small outputs are new tensors each call: the first is as it was
     assert _same_bits(graphed[1][1]["loss"], eager[1][1]["loss"])
-    S._GRAPHS.clear()
+    graphs.release()
 
 
 @pytest.mark.cuda
@@ -401,7 +545,7 @@ def test_profiler_records_the_kernels_of_a_replay(cuda_device):
                             capacity=2**21)
     m, st = S.clone_state(model, init_state(model.params, device=dev))
     bg = torch.zeros(3, device=dev)
-    S._GRAPHS.clear()
+    graphs.release()
     for i in range(2):  # eager, capture
         S.train_step(m, st, cams[0], gts[0], 2.5, bg, 700 + i, statics, device=dev)
     torch.cuda.synchronize()
@@ -414,4 +558,88 @@ def test_profiler_records_the_kernels_of_a_replay(cuda_device):
     assert "composite_fwd_kernel" in names and "composite_bwd_kernel" in names
     assert len(kernels_seen) > 500, len(kernels_seen)
     assert sum(e.time_range.end - e.time_range.start for e in kernels_seen) > 0
-    S._GRAPHS.clear()
+    graphs.release()
+
+
+_FRAME = ("render", "depth", "opticalflow", "acc", "dominent_idxs", "radii",
+          "visibility_filter", "binning_total")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("track_idx", [False, True])
+def test_graphed_render_is_bit_equal_to_the_eager_render(cuda_device, counters, track_idx):
+    """A path of (camera, t) rendered under no_grad, t crossing the
+    keyframe boundaries t = 2 and 7, gives every frame bit for bit as the
+    same render with grad enabled (which stays eager); the render's graph
+    runs one eager call, one capture and replays for the rest, and the
+    step's counter does not move. A new capacity, then a new camera size,
+    each re-capture."""
+    dev = cuda_device
+    model, cfg, cams, _gts = _card_scene(dev)
+    bg = torch.tensor([0.2, 0.4, 0.1], device=dev)
+    cap = default_capacity(model.static_capacity + model.dynamic_capacity, cams[0].width,
+                           cams[0].height)
+    b = np.float32(2.0)
+    path = [(0, 1.5), (1, float(b)), (2, float(np.nextafter(b, np.float32(-np.inf)))),
+            (3, 2.5), (0, 7.0), (1, 6.75), (2, float(np.nextafter(np.float32(7.0),
+                                                                np.float32(np.inf)))),
+            (3, 9.5), (0, 0.0)]
+    small = ring_cameras(2, 3.0, 96, 64, far=cfg.far, device=dev)
+    calls = ([(cams[c], t, cap) for c, t in path]
+             + [(cams[0], 3.0, 2 * cap), (cams[1], 4.0, 2 * cap)]  # a new capacity
+             + [(small[0], 5.0, 2 * cap), (small[1], 8.0, 2 * cap), (small[0], 1.0, 2 * cap)])
+
+    def frame(cam, t, capacity):
+        res = render(cam, model, cfg, t=t, bg=bg, capacity=capacity, track_idx=track_idx,
+                     device=dev)
+        return {f: getattr(res, f).detach().clone() for f in _FRAME}
+
+    graphs.release()
+    want = [frame(*c) for c in calls]  # grad enabled: eager
+    assert kernels.graph_call_counts(dev, "render") == {"eager": 0, "captures": 0, "replays": 0}
+    with torch.no_grad():
+        got = [frame(*c) for c in calls]
+    torch.cuda.synchronize()
+    n = len(path)
+    # each key: its eager call, its capture (which replays too), replays
+    assert kernels.graph_call_counts(dev, "render") == {"eager": 3, "captures": 3,
+                                                         "replays": (n - 1) + 1 + 2}
+    assert kernels.graph_call_counts(dev) == {"eager": 0, "captures": 0, "replays": 0}
+    for i, (w, g) in enumerate(zip(want, got)):
+        for f in _FRAME:
+            assert _same_bits(g[f], w[f]), (i, f)
+    assert len({int(g["binning_total"]) for g in got[:n]}) > 1  # the frames differ
+    graphs.release()
+
+
+@pytest.mark.cuda
+def test_render_in_a_step_stays_eager_and_a_new_step_key_releases_it(cuda_device, counters):
+    """A render with grad enabled, and the renders inside train_step's
+    eager call, capture and replays, leave the render's counter where it
+    was; a train_step with a new key releases the card's render graph, and
+    a no-gradient render between replayed steps does not evict the step's
+    graph."""
+    dev = graphs.card(cuda_device)
+    model, cfg, cams, gts = _card_scene(dev)
+    statics = S.StepStatics(cfg=cfg, opt=OptimizationConfig(), spatial_lr_scale=1.0,
+                            capacity=2**21)
+    bg = torch.zeros(3, device=dev)
+    graphs.release()
+    render(cams[0], model, cfg, t=2.5, bg=bg, capacity=statics.capacity, device=dev)
+    assert kernels.graph_call_counts(dev, "render")["eager"] == 0
+    with torch.no_grad():
+        for c in cams[:2]:  # eager, capture
+            render(c, model, cfg, t=2.5, bg=bg, capacity=statics.capacity, device=dev)
+    assert ("render", dev) in graphs._GRAPHS
+    m, st = S.clone_state(model, init_state(model.params, device=dev))
+    S.train_step(m, st, cams[0], gts[0], 2.5, bg, 700, statics, device=dev)  # a new key
+    assert ("render", dev) not in graphs._GRAPHS
+    for i in range(1, 4):  # capture, replay, replay, each with a viewer frame between
+        S.train_step(m, st, cams[i], gts[i], 2.5 + i, bg, 700 + i, statics, device=dev)
+        with torch.no_grad():
+            render(cams[i], model, cfg, t=1.0, bg=bg, capacity=statics.capacity, device=dev)
+    torch.cuda.synchronize()
+    assert kernels.graph_call_counts(dev) == {"eager": 1, "captures": 1, "replays": 3}
+    assert kernels.graph_call_counts(dev, "render") == {"eager": 2, "captures": 2,
+                                                         "replays": 3}
+    graphs.release()

@@ -1,12 +1,12 @@
 """On the card (marker `cuda`): the step path makes no host read.
 
 train_step's three ways to run (its key's eager first call, the capture of
-its CUDA graph with the first replay, and a replay), the sharded step at
-mesh (1, 1), a render with dynamic points and one trainer iteration's
-dispatch each run under torch.cuda.set_sync_debug_mode("error") (after a
-warm-up call; runtime/profiling.py::host_syncs): none may wait for the
-card. The file imports no JAX, so it runs where only the port is
-installed:
+its CUDA graph with the first replay, and a replay), a no-gradient render's
+three ways through its own graph, the sharded step at mesh (1, 1), a render
+with dynamic points under grad and one trainer iteration's dispatch each
+run under torch.cuda.set_sync_debug_mode("error") (after a warm-up call;
+runtime/profiling.py::host_syncs): none may wait for the card. The file
+imports no JAX, so it runs where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_sync.py
 """
@@ -23,6 +23,7 @@ from ex4dgs_tpu_torch.models.optimizer import init_state
 from ex4dgs_tpu_torch.parallel import make_mesh
 from ex4dgs_tpu_torch.parallel.step_dp import make_sharded_train_step
 from ex4dgs_tpu_torch.rendering import default_capacity, render
+from ex4dgs_tpu_torch.runtime import graphs
 from ex4dgs_tpu_torch.runtime.profiling import host_syncs
 from ex4dgs_tpu_torch.synthetic import make_scene, ring_cameras
 from ex4dgs_tpu_torch.train.step import StepStatics, clone_state, train_step
@@ -57,6 +58,14 @@ def test_step_and_render_make_no_host_read(cuda_device):
         assert host_syncs(lambda: train_step(m, st, cam, gt, 2.5, bg, 700, statics,
                                              device=dev)) == [], f"train_step ({how})"
         after = kernels.graph_call_counts(dev)
+        assert after[how] == before[how] + 1, (how, before, after)
+    graphs.release("render")
+    for how in ("eager", "captures", "replays"):
+        before = kernels.graph_call_counts(dev, "render")
+        with torch.no_grad():
+            assert host_syncs(lambda: render(cam, model, cfg, t=7.5, bg=bg, capacity=cap,
+                                             device=dev)) == [], f"render ({how})"
+        after = kernels.graph_call_counts(dev, "render")
         assert after[how] == before[how] + 1, (how, before, after)
     calls = {
         "sharded step": lambda: sharded(model, state, cam, gt, 2.5, bg, 700),
