@@ -150,22 +150,34 @@ fourdgs: train_step_4d, the n3v_4dgs cell's path, three times at the
    slicing kernels and the pack VJP must launch once per view (12 each),
    the graph calls must be 1 eager, 1 capture and 2 replays, and every loss
    finite, with no NaN and no overflow.
+hexplane: train_step_deform, the n3v_hexplane cell's path, three times at
+   the cell's shape (gsbench/configs/n3v_hexplane.json: its model as
+   gsbench draws it, 300,000 Gaussians in 303,104 rows and the field's 12
+   planes and MLP, its statics, 4 views of 1352x1014 a step at 16x16 tiles
+   with the exact sort), as the fourdgs phase runs train_step_4d: the
+   HexPlane kernels and the pack VJP must launch once per view (12 each),
+   the graph calls must be 1 eager, 1 capture and 2 replays, and every loss
+   finite, with no NaN and no overflow.
 kernels: every hand-written kernel (kernels.SOURCES) held to its plain
    version on the card, then both timed: A, B and the pack VJP V on the
    bench frame at t = 1 (32x16 tiles, the packed key, seeded cotangents),
    V also on the n3v_4dgs cell's binning (V4: its model through one view at
    16x16 tiles with the exact sort, 4,063,232 slots), the probes P1 and
    P2a-e at their own sizes, the slicing pair S1 and S2 on the n3v_4dgs
-   cell's model (SH degree 3 x time degree 2). Each kernel is launched
-   twice (bit-equal) and held to its plain version as the `cuda` tests hold
-   it: A (hold_a) within 2e-5 and TF_RTOL, B (hold_b) within
-   BWD_RTOL/BWD_ATOL and bit-equal to its twin, S1 and S2 within SLICE_RTOL
-   and SLICE_BWD_RTOL, the probes and V bit for bit. A, B, S1, S2 and V are
-   timed by bench_frame.cuda_ms (CUDA events over back-to-back launches, so
-   inputs that fit in L2 are read from it), the probes as
-   probes.readings_ms times them (one launch after an L2 flush, the
-   median). One JSON object holds a row per kernel and shape, with its
-   largest difference from plain.
+   cell's model (SH degree 3 x time degree 2), the HexPlane pair H1 and H2
+   on the n3v_hexplane cell's model (303,104 rows, 12 planes, t = 0.37,
+   seeded cotangents). Each kernel is launched twice (bit-equal) and held
+   to its plain version as the `cuda` tests hold it: A (hold_a) within 2e-5
+   and TF_RTOL, B (hold_b) within BWD_RTOL/BWD_ATOL and bit-equal to its
+   twin, S1 and S2 within SLICE_RTOL and SLICE_BWD_RTOL, H1 and H2 within
+   HEX_RTOL and HEX_BWD_RTOL, the probes and V bit for bit. A, B, S1, S2,
+   V, H1 and H2 are timed by bench_frame.cuda_ms (CUDA events over
+   back-to-back launches, so inputs that fit in L2 are read from it), the
+   probes as probes.readings_ms times them (one launch after an L2 flush,
+   the median). H1 and H2 are also timed as the library computes them
+   (`library_ms`): 12 F.grid_sample calls and their products, and
+   autograd's backward of those. One JSON object holds a row per kernel
+   and shape, with its largest difference from plain.
 
 The last lines are the card's name and power limit (as nvidia-smi prints
 them), the kernels phase's object, and {"ok": true, "device": {...}}.
@@ -1794,6 +1806,66 @@ def fourdgs_phase(dev, card: str) -> None:
         fail("train_step_4d gave a non-finite loss, a NaN or an overflow")
 
 
+
+def hexplane_phase(dev, card: str) -> None:
+    """The hexplane phase (see the module's docstring)."""
+    from ex4dgs_tpu_torch import kernels
+    from ex4dgs_tpu_torch.synthetic import ring_cameras
+    from ex4dgs_tpu_torch.runtime import graphs
+    from gsbench.families import hexplane
+
+    cell = load_cell("n3v_hexplane")
+    prog = hexplane.Program(cell, dev)
+    carried = prog.start(prog.model(hexplane.make_params(cell, 18, dev)))
+    w, h, n = cell["width"], cell["height"], hexplane.VIEWS_PER_STEP
+    cams = ring_cameras(8, 12.0, w, h, device=dev)
+    g = torch.Generator(device=dev).manual_seed(19)
+    gts = [torch.rand((h, w, 3), generator=g, device=dev) for _ in range(n)]
+    graphs.release()
+    kernels.reset_launches()
+    kernels.reset_graph_calls()
+    outs = []
+    for i in range(3):  # an eager call, a capture with its replay, a replay
+        views = [cams[(2 * i + j) % len(cams)] for j in range(n)]
+        t0 = time.perf_counter()
+        loss, total, nan = prog.step(carried, views, gts, [27 + 69 * j + 12 * i for j in range(n)],
+                                     torch.rand(3, generator=g, device=dev), 10_000 + i)
+        torch.cuda.synchronize()
+        outs.append((float(loss), bool(nan), int(total), (time.perf_counter() - t0) * 1e3))
+    calls = kernels.graph_call_counts(dev)
+    launched = {k: kernels.launches[k] for k in ("hexplane_fwd", "hexplane_bwd", "pack_vjp")}
+    capacity = carried["statics"].capacity
+    graphs.release()
+    log(f"# train_step_deform x3 at {w}x{h}, {n} views, the n3v_hexplane cell's model (loss, "
+        f"nan, largest view's instances of {capacity}, host ms): {outs}; graph calls {calls}; "
+        f"launches {launched}; {card}")
+    if calls != {"eager": 1, "captures": 1, "replays": 2}:
+        fail(f"train_step_deform's graph calls are {calls}, not an eager call, a capture and "
+             f"two replays")
+    if launched != dict.fromkeys(launched, 3 * n):
+        fail(f"the HexPlane kernels and the pack VJP launched {launched} times in 3 steps of "
+             f"{n} views")
+    if any(nan or not math.isfinite(loss) or tot > capacity for loss, nan, tot, _ in outs):
+        fail("train_step_deform gave a non-finite loss, a NaN or an overflow")
+
+
+def grid_sample_field(coords, planes):
+    """The HexPlane field by the library: one F.grid_sample call a plane
+    (align_corners, border), the products of a scale's six, the scales
+    concatenated."""
+    import torch.nn.functional as F
+    from ex4dgs_tpu_torch.ops.hexplane import PAIRS
+
+    feats = []
+    for s in range(0, len(planes), len(PAIRS)):
+        f = 1.0
+        for k, (a, b) in enumerate(PAIRS):
+            grid = coords[:, (a, b)].view(1, 1, -1, 2)
+            f = f * F.grid_sample(planes[s + k][None], grid, mode="bilinear",
+                                  padding_mode="border", align_corners=True)[0, :, 0].T
+        feats.append(f)
+    return torch.cat(feats, -1)
+
 def pack_inputs(render_fn) -> tuple:
     """(slot, cum, counts) that `render_fn()` hands to the packing
     (ops.rasterize_cuda.PackSorted): a binning exactly as the render and
@@ -1825,12 +1897,13 @@ def kernels_phase(dev, scene, card: str) -> list[dict]:
     per launch of both."""
     from ex4dgs_tpu_torch import kernels
     from ex4dgs_tpu_torch.bench_frame import cotangents, cuda_ms, pack_frame
+    from ex4dgs_tpu_torch.ops import hexplane as H
     from ex4dgs_tpu_torch.ops import rasterize_cuda as trc
     from ex4dgs_tpu_torch.ops import slice4d as S
     from ex4dgs_tpu_torch.probes import outspec, readings_ms, unaligned
     from ex4dgs_tpu_torch.rendering import render
     from ex4dgs_tpu_torch.synthetic import ring_cameras
-    from gsbench.families import fourdgs
+    from gsbench.families import fourdgs, hexplane
 
     rows = []
 
@@ -1841,13 +1914,18 @@ def kernels_phase(dev, scene, card: str) -> list[dict]:
         return statistics.median(readings_ms(fn, dev, reps))
 
     def row(key: str, name: str, inputs: str, kernel, plain, check=held, timer=events,
-            plain_reps: int = 3) -> None:
+            plain_reps: int = 3, library=None) -> None:
         source = next(s for s, fns in kernels.SOURCES.items() if name in fns)
         err = check(f"{key} {name}", kernel(), kernel(), plain())
         ms, plain_ms = timer(kernel, 20), timer(plain, plain_reps)
         rows.append({"id": key, "name": name, "source": f"ex4dgs_tpu_torch/csrc/{source}.cu",
                      "inputs": inputs, "max_err": err, "ms": ms, "plain_ms": plain_ms})
-        log(f"# {key} {name}: {ms:.4f} ms a launch, plain {plain_ms:.4f} ms; {inputs}; {card}")
+        lib = ""
+        if library is not None:
+            rows[-1]["library_ms"] = timer(library, 20)
+            lib = f", library {rows[-1]['library_ms']:.4f} ms"
+        log(f"# {key} {name}: {ms:.4f} ms a launch, plain {plain_ms:.4f} ms{lib}; {inputs}; "
+            f"{card}")
 
     f = pack_frame(scene)
     frame = (f"the bench frame at t=1, {scene.cam.width}x{scene.cam.height}, 32x16 tiles, "
@@ -1922,11 +2000,45 @@ def kernels_phase(dev, scene, card: str) -> list[dict]:
             f"{int((counts > 0).sum())} visible Gaussians, seeded cotangents",
             lambda: kernels.pack_vjp(*vjp), lambda: trc.pack_vjp_plain(*vjp))
         del ct, vjp
+    del prog, binnings
+
+    # the HexPlane pair on the n3v_hexplane cell's model, one view's field
+    cell = load_cell("n3v_hexplane")
+    p = hexplane.make_params(cell, 18, dev)
+    lo, hi = p["aabb"]
+    c = (p["params"]["xyz"] - lo) * (2.0 / (hi - lo)) - 1.0
+    coords = torch.cat([c, torch.full_like(c[:, :1], 0.37)], -1).contiguous()
+    planes = [p["params"][k] for k in H.plane_keys(len(cell["multires"]))]
+    del p, c
+    P = coords.shape[0]
+    width = cell["kplanes_config"]["output_coordinate_dim"] * len(cell["multires"])
+    cot = torch.randn((P, width), generator=g, device=dev) * 1e-3
+    field = (f"the n3v_hexplane cell's model, {P} rows, {len(planes)} planes of "
+             f"{sum(x.numel() for x in planes) * 4 / 1e6:.2f} MB, t = 0.37")
+    lib_f = grid_sample_field(coords, planes)
+    log(f"# H1's library version (12 grid_sample calls) vs plain: "
+        f"{rel_err(lib_f, H.hexplane_plain(coords, planes)):.3g} of the largest")
+    row("H1", "hexplane_fwd", field, lambda: kernels.hexplane_fwd(coords, planes),
+        lambda: H.hexplane_plain(coords, planes),
+        check=lambda *a: held(*a, rtol=H.HEX_RTOL),
+        library=lambda: grid_sample_field(coords, planes))
+    leaves = [coords.clone().requires_grad_(True), *(x.clone().requires_grad_(True)
+                                                     for x in planes)]
+    lib_f = grid_sample_field(leaves[0], leaves[1:])
+
+    def flat(out):  # (coords' gradient, each plane's) as one tuple
+        return (out[0], *out[1])
+
+    row("H2", "hexplane_bwd", field + ", seeded cotangents",
+        lambda: flat(kernels.hexplane_bwd(coords, planes, cot)),
+        lambda: flat(H.hexplane_bwd_plain(coords, planes, cot)),
+        check=lambda *a: held(*a, rtol=H.HEX_BWD_RTOL),
+        library=lambda: torch.autograd.grad(lib_f, leaves, cot, retain_graph=True))
     return rows
 
 
 PHASES = ("build", "scene", "render", "reference", "trainer", "eval", "quality", "multi_gpu",
-          "bench", "fourdgs", "kernels")
+          "bench", "fourdgs", "hexplane", "kernels")
 NEEDS = {"render": "scene", "eval": "trainer"}  # a phase's set-up: another phase
 
 
@@ -1988,7 +2100,7 @@ def main(argv: list[str]) -> int:
                                    card),
         "quality": lambda: quality_phase(dev, card, tmp), "multi_gpu": multi_gpu,
         "bench": lambda: bench_phase(card), "fourdgs": lambda: fourdgs_phase(dev, card),
-        "kernels": kernels_table,
+        "hexplane": lambda: hexplane_phase(dev, card), "kernels": kernels_table,
     }
     phase_s = []
     with tempfile.TemporaryDirectory(prefix="ex4dgs_smoke_") as tmp:

@@ -51,6 +51,8 @@ SOURCES = {
     "slice4d_fwd": ("slice4d_fwd",),
     "slice4d_bwd": ("slice4d_bwd",),
     "pack_vjp": ("pack_vjp",),
+    "hexplane_fwd": ("hexplane_fwd",),
+    "hexplane_bwd": ("hexplane_bwd",),
 }
 launches: dict[str, int] = {fn: 0 for fns in SOURCES.values() for fn in fns}
 _tallies: list[dict[str, int]] = []  # launches of the graphs being captured
@@ -86,6 +88,11 @@ _SIGNATURES = {
     "slice4d_bwd": [_P] * 17 + [ctypes.c_longlong, _I, ctypes.c_float] + [_P] * 10,
     # ct, slot, cum, counts, by_slot, d_rows, capacity, P, stream
     "pack_vjp": [_P] * 6 + [ctypes.c_longlong, ctypes.c_longlong, _P],
+    # coords, plane pointers, ra, rb (host arrays), n_planes, P, out, stream
+    "hexplane_fwd": [_P] * 4 + [_I, ctypes.c_longlong, _P, _P],
+    # coords, plane pointers, ra, rb, n_planes, g_f, P, g_coords, the
+    # fixed-point sums, the terms' bound, the planes' gradients, stream
+    "hexplane_bwd": [_P] * 4 + [_I, _P, ctypes.c_longlong] + [_P] * 5,
 }
 _locks = {name: threading.Lock() for name in SOURCES}
 
@@ -550,3 +557,74 @@ def pack_vjp(ct: torch.Tensor, slot: torch.Tensor, cum: torch.Tensor,
     _launch("pack_vjp", "pack_vjp", dev, ct.data_ptr(), slot.data_ptr(), cum.data_ptr(),
             counts.data_ptr(), by_slot.data_ptr(), d_rows.data_ptr(), capacity, P)
     return d_rows
+
+
+HEX_CHANNELS, HEX_PAIRS, HEX_MAX_PLANES = 16, 6, 24  # csrc/hexplane_common.cuh
+
+
+def _hexplane_inputs(coords: torch.Tensor, planes):
+    """Check the HexPlane kernels' common inputs: coords f32 [P, 4] and the
+    planes, scale-major, six a scale, each f32 [16, R_b, R_a] with R >= 2,
+    all contiguous on one CUDA device. Returns (device, P, the host arrays
+    of plane pointers, R_a and R_b)."""
+    dev = coords.device
+    P = coords.shape[0] if coords.dim() == 2 else -1
+    _check("coords", coords, torch.float32, (P, 4), dev)
+    if coords.data_ptr() % 16:
+        raise ValueError("coords must be 16-byte aligned (one float4 a point)")
+    n = len(planes)
+    if n == 0 or n % HEX_PAIRS or n > HEX_MAX_PLANES:
+        raise ValueError(f"{n} planes: the kernels take six a scale, at most {HEX_MAX_PLANES}")
+    for i, x in enumerate(planes):
+        shape = tuple(x.shape)
+        if len(shape) != 3 or shape[0] != HEX_CHANNELS or min(shape[1:]) < 2:
+            raise ValueError(f"plane {i} has shape {shape}, expected [{HEX_CHANNELS}, R_b, R_a]"
+                             " with R >= 2")
+        _check(f"plane {i}", x, torch.float32, shape, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"the HexPlane kernels run on CUDA tensors, got {dev}")
+    ptrs = (ctypes.c_void_p * n)(*(x.data_ptr() for x in planes))
+    ra = (ctypes.c_int * n)(*(x.shape[2] for x in planes))
+    rb = (ctypes.c_int * n)(*(x.shape[1] for x in planes))
+    return dev, P, ptrs, ra, rb
+
+
+def hexplane_fwd(coords: torch.Tensor, planes) -> torch.Tensor:
+    """Launch csrc/hexplane_fwd.cu (see `_hexplane_inputs` for the inputs).
+    Returns the features f32 [P, 16 x scales], computed on the current
+    stream (ops/hexplane.py has the equations)."""
+    dev, P, ptrs, ra, rb = _hexplane_inputs(coords, planes)
+    n = len(planes)
+    out = torch.empty((P, HEX_CHANNELS * n // HEX_PAIRS), dtype=torch.float32, device=dev)
+    if P == 0:
+        return out
+    _launch("hexplane_fwd", "hexplane_fwd", dev, coords.data_ptr(), ptrs, ra, rb, n, P,
+            out.data_ptr())
+    return out
+
+
+def hexplane_bwd(coords: torch.Tensor, planes, g_f: torch.Tensor):
+    """Launch csrc/hexplane_bwd.cu: the cotangent g_f f32 [P, 16 x scales]
+    of the features. Returns (coords' gradient f32 [P, 4], each plane's,
+    shaped as it is), computed on the current stream, the same bits at
+    every launch (the planes' sums are taken in fixed point, scaled by a
+    bound of every term computed here on the device: max |g_f| times the
+    largest |plane value| to the fifth)."""
+    dev, P, ptrs, ra, rb = _hexplane_inputs(coords, planes)
+    n = len(planes)
+    _check("g_f", g_f, torch.float32, (P, HEX_CHANNELS * n // HEX_PAIRS), dev)
+    g_coords = torch.empty((P, 4), dtype=torch.float32, device=dev)
+    sizes = [x.numel() for x in planes]
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    g_planes = [g.view_as(x) for g, x in zip(torch.split(flat, sizes), planes)]
+    if P == 0:
+        flat.zero_()
+        return g_coords, g_planes
+    # zero-filled here: the kernel adds into the cells its points touch
+    acc = torch.zeros(sum(sizes), dtype=torch.int64, device=dev)
+    top = torch.stack([x.abs().amax() for x in planes]).amax()
+    bound = g_f.abs().amax() * top ** (HEX_PAIRS - 1)
+    _launch("hexplane_bwd", "hexplane_bwd", dev, coords.data_ptr(), ptrs, ra, rb, n,
+            g_f.data_ptr(), P, g_coords.data_ptr(), acc.data_ptr(), bound.data_ptr(),
+            flat.data_ptr())
+    return g_coords, g_planes

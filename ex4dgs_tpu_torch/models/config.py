@@ -141,6 +141,54 @@ class Optimization4DConfig:
     adam_eps: float = 1e-15
 
 
+@dataclasses.dataclass(frozen=True)
+class ModelDeformConfig:
+    """4D-GS's model (Wu et al., CVPR 2024; its dynerf arguments): canonical
+    3DGS Gaussians deformed at time t by a HexPlane field of `multires`
+    scales (6 planes each, `output_coordinate_dim` channels, `resolution`
+    (x, y, z, t) cells at scale 1, the spatial ones times the scale) and an
+    MLP of `net_width` with `defor_depth` hidden layers before five heads;
+    the projection's frustum and 3DGS's uncompensated 2D dilation."""
+
+    sh_degree: int = 3
+    multires: tuple = (1, 2)
+    resolution: tuple = (64, 64, 64, 150)
+    output_coordinate_dim: int = 16
+    net_width: int = 128
+    defor_depth: int = 0
+    near: float = 0.2
+    far: float = 100.0
+    dilation: float = 0.3
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizationDeformConfig:
+    """4D-GS's fine-stage recipe (dynerf): L1 over a batch of views plus the
+    planes' smoothness and time-plane regularizers, Adam over eight groups,
+    the means, the deformation MLP and the grid on exponential schedules
+    (times the spatial scale)."""
+
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 20_000
+    deformation_lr_init: float = 0.00016
+    deformation_lr_final: float = 0.000016
+    deformation_lr_delay_mult: float = 0.01
+    grid_lr_init: float = 0.0016
+    grid_lr_final: float = 0.00016
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    plane_tv_weight: float = 0.0002
+    time_smoothness_weight: float = 0.001
+    l1_time_planes: float = 0.0001
+    lambda_dssim: float = 0.0
+    densify_until_iter: int = 10_000
+    adam_eps: float = 1e-15
+
+
 def overlay_json(cfg: Any, json_path_or_dict) -> Any:
     """Overlay JSON keys onto a frozen dataclass, skipping unknown keys."""
     if isinstance(json_path_or_dict, str):

@@ -17,7 +17,7 @@ import math
 import torch
 
 from .. import resolve_device
-from .config import Optimization4DConfig, OptimizationConfig
+from .config import Optimization4DConfig, OptimizationConfig, OptimizationDeformConfig
 from .state import GaussianModel
 
 BETA1 = 0.9
@@ -139,6 +139,28 @@ def fourdgs_lrs(opt: Optimization4DConfig, spatial_lr_scale: float, iteration) -
             "opacity": opt.opacity_lr, "f_dc": opt.feature_lr, "f_rest": opt.feature_lr / 20.0}
 
 
+def deform_lrs(opt: OptimizationDeformConfig, spatial_lr_scale: float, iteration,
+               names) -> dict:
+    """Learning rate of each of 4D-GS's parameters `names` at `iteration`,
+    by its group: the means (xyz), the grid's planes (grid.*) and the
+    deformation MLP (every other field parameter) on exponential schedules
+    of the position's length times the spatial scale, the features,
+    opacity, scaling and rotation at fixed rates."""
+    def sched(init, final, delay_mult):
+        return expon_lr(iteration, init * spatial_lr_scale, final * spatial_lr_scale,
+                        lr_delay_mult=delay_mult, max_steps=opt.position_lr_max_steps)
+
+    fixed = {"f_dc": opt.feature_lr, "f_rest": opt.feature_lr / 20.0,
+             "opacity": opt.opacity_lr, "scaling": opt.scaling_lr, "rotation": opt.rotation_lr,
+             "xyz": sched(opt.position_lr_init, opt.position_lr_final,
+                          opt.position_lr_delay_mult)}
+    grid = sched(opt.grid_lr_init, opt.grid_lr_final, opt.deformation_lr_delay_mult)
+    mlp = sched(opt.deformation_lr_init, opt.deformation_lr_final,
+                opt.deformation_lr_delay_mult)
+    return {k: fixed[k] if k in fixed else grid if k.startswith("grid.") else mlp
+            for k in names}
+
+
 def adam_update(params: dict, grads: dict, state: RAdamState, lrs: dict, eps: float):
     """One Adam step (torch.optim.Adam's: betas (0.9, 0.999), no weight
     decay, bias-corrected); returns (new params, new state). lrs as
@@ -170,6 +192,19 @@ def mask_grads(grads: dict, model: GaussianModel) -> dict:
         m = model.dynamic_mask if k.startswith("motion_") else model.static_mask
         mb = m.reshape((-1,) + (1,) * (g.ndim - 1))
         out[k] = torch.where(mb, g, torch.zeros((), dtype=g.dtype, device=g.device))
+    return out
+
+
+def masked_row_grads(params: dict, grads, mask, rows=None) -> dict:
+    """The gradients (in params' order) of a batch step, as Adam takes them:
+    each of the `rows` (every parameter by default) zeroed on the rows
+    outside `mask`, and every NaN zeroed, with where and not a product."""
+    out = {}
+    for (k, p), g in zip(params.items(), grads):
+        zero = torch.zeros((), device=g.device)
+        if rows is None or k in rows:
+            g = torch.where(mask.view(-1, *([1] * (p.ndim - 1))), g, zero)
+        out[k] = torch.where(torch.isnan(g), zero, g)
     return out
 
 

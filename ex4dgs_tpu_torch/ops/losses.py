@@ -121,3 +121,24 @@ def combined_loss(pred: torch.Tensor, gt: torch.Tensor, lambda_dssim: float = 0.
     """((1 - lambda) L1 + lambda (1 - SSIM), L1): the training loss."""
     ll1 = l1_loss(pred, gt)
     return (1.0 - lambda_dssim) * ll1 + lambda_dssim * (1.0 - ssim(pred, gt)), ll1
+
+
+def plane_smoothness(plane: torch.Tensor) -> torch.Tensor:
+    """The mean squared second difference of a feature plane [C, R_b, R_a]
+    along its rows (R_b): 4D-GS's smoothness term."""
+    first = plane[:, 1:, :] - plane[:, :-1, :]
+    second = first[:, 1:, :] - first[:, :-1, :]
+    return torch.square(second).mean()
+
+
+def plane_regularizers(planes: list, time: list, plane_tv_weight: float,
+                       time_smoothness_weight: float, l1_time_planes: float) -> torch.Tensor:
+    """4D-GS's regularizers of its HexPlane (`planes`, `time[i]` whether
+    planes[i] holds t): plane_tv_weight times the spatial planes'
+    smoothness, time_smoothness_weight times the time planes', and
+    l1_time_planes times the sum of the time planes' mean |1 - P|."""
+    spatial = sum(plane_smoothness(p) for p, on in zip(planes, time) if not on)
+    smooth = sum(plane_smoothness(p) for p, on in zip(planes, time) if on)
+    ones = sum(torch.abs(1.0 - p).mean() for p, on in zip(planes, time) if on)
+    return (plane_tv_weight * spatial + time_smoothness_weight * smooth
+            + l1_time_planes * ones)

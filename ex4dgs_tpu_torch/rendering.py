@@ -6,8 +6,9 @@ alpha, dominant-contributor index, per-splat radii and visibility. The
 compositor is chosen by the device of the tensors: on CUDA the
 forward-compositing kernel runs, on the CPU its plain version.
 `render4d(cam, model4d, cfg, t=..., bg=...)` renders the second model
-family, 4D Gaussian Splatting (Yang et al.), through the same projection,
-binning and compositing.
+family, 4D Gaussian Splatting (Yang et al.), and `render_deform(cam,
+model, cfg, t=..., bg=...)` the third, 4D-GS (Wu et al.), through the same
+projection, binning and compositing.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import torch
 
 from . import resolve_device, upload
 from .kernel_config import KernelConfig
-from .models.config import Model4DConfig, ModelConfig
+from .models.config import Model4DConfig, ModelConfig, ModelDeformConfig
+from .models.deform import DeformModel, deform
 from .models.state import GaussianModel
 from .models.state4d import Gaussian4DModel
 from .models.temporal import PointData, point_data_at_t
@@ -397,6 +399,45 @@ def render4d(cam: RenderCamera, model: Gaussian4DModel, cfg: Model4DConfig, *, t
                                      mean2d_ndc_offset=mean2d_offset, tile_x=kcfg.tile_x,
                                      tile_y=kcfg.tile_y, compensate=False)
             proj = _masked(proj, live)
+        flow = torch.zeros((P, 3), dtype=torch.float32, device=dev)
+        return composite_projected(proj, rgb, flow, cam, bg=bg, far=cfg.far, capacity=capacity,
+                                   track_idx=False, kernel_cfg=kcfg)
+
+
+def render_deform(cam: RenderCamera, model: DeformModel, cfg: ModelDeformConfig, *, t, bg,
+                  capacity: int | None = None, mean2d_offset=None,
+                  kernel_cfg: KernelConfig | None = None, device=None) -> RenderResult:
+    """Render a 4D-GS model (Wu et al.) at time t (the source's normalised
+    time in [0, 1); a host number or a 0-d tensor on the device) on
+    `device` (cuda unless told otherwise; model and camera must already be
+    there): deform the canonical Gaussians by the HexPlane field and its
+    MLP (`models/deform.py`), apply the activations (exp of the scales,
+    the quaternion normalised, sigmoid of the opacity), colour the deformed
+    SH at degree cfg.sh_degree from the camera centre to the deformed
+    mean, project with 3DGS's uncompensated dilation (`cfg.dilation`),
+    then bin and composite as `render` does. Rows outside the mask are
+    invalid. Reads nothing back to the host."""
+    with span("ex4dgs.render"):
+        dev = resolve_device(device)
+        _on(dev, "the model", model.params["xyz"])
+        _on(dev, "the camera", cam.view)
+        kcfg = (kernel_cfg or KernelConfig()).validate()
+        P = model.capacity
+        if capacity is None:
+            capacity = default_capacity(P, cam.width, cam.height, kcfg)
+        bg = upload(bg, dev, torch.float32)
+        means, scaling, rotation, opacity, sh = deform(model.params, model.aabb, t, cfg)
+        with span("ex4dgs.preprocess"):
+            quat = rotation / torch.linalg.norm(rotation, dim=-1, keepdim=True)
+            cov3d = cov3d_from_scaling_rotation(torch.exp(scaling), quat)
+            rgb = sh_to_rgb(cfg.sh_degree, sh, means, cam.campos)
+            proj = project_gaussians(means, cov3d, torch.sigmoid(opacity[:, 0]), cam.arrays,
+                                     width=cam.width, height=cam.height, tan_fovx=cam.tan_fovx,
+                                     tan_fovy=cam.tan_fovy, kernel_size=cfg.dilation,
+                                     min_depth=cfg.near, max_depth=cfg.far,
+                                     mean2d_ndc_offset=mean2d_offset, tile_x=kcfg.tile_x,
+                                     tile_y=kcfg.tile_y, compensate=False)
+            proj = _masked(proj, model.mask)
         flow = torch.zeros((P, 3), dtype=torch.float32, device=dev)
         return composite_projected(proj, rgb, flow, cam, bg=bg, far=cfg.far, capacity=capacity,
                                    track_idx=False, kernel_cfg=kcfg)

@@ -40,6 +40,9 @@ Splatting (Yang et al.): a batch of views, each rendered at its own time,
 the mean of their losses, one backward and Adam. It runs as one CUDA graph
 through the same machinery (`_run_graphed`, on `runtime/graphs.py`), its
 key (`_graph_key_4d`) holding the number and sizes of the views.
+`train_step_deform` is the step of the third, 4D-GS (Wu et al.): the same
+batch step (`_batch_step`) over `render_deform`, its loss L1 plus the
+HexPlane's regularizers, on the same graph machinery.
 """
 from __future__ import annotations
 
@@ -50,13 +53,15 @@ import torch
 
 from .. import resolve_device, scalar_on, upload
 from ..kernel_config import KernelConfig
-from ..models.config import Model4DConfig, ModelConfig, Optimization4DConfig, OptimizationConfig
-from ..models.optimizer import (RAdamState, adam_update, fourdgs_lrs, group_lrs, mask_grads,
-                                radam_update, scrub_nan)
+from ..models.config import (Model4DConfig, ModelConfig, ModelDeformConfig,
+                             Optimization4DConfig, OptimizationConfig, OptimizationDeformConfig)
+from ..models.deform import ROW_KEYS, DeformModel, time_plane
+from ..models.optimizer import (RAdamState, adam_update, deform_lrs, fourdgs_lrs, group_lrs,
+                                mask_grads, masked_row_grads, radam_update, scrub_nan)
 from ..models.state import GaussianModel
 from ..models.state4d import Gaussian4DModel
-from ..ops.losses import combined_loss, l1_loss, psnr, ssim
-from ..rendering import RenderCamera, RenderResult, render, render4d
+from ..ops.losses import combined_loss, l1_loss, plane_regularizers, psnr, ssim
+from ..rendering import RenderCamera, RenderResult, render, render4d, render_deform
 from ..runtime import graphs
 from ..runtime.profiling import span
 
@@ -392,17 +397,19 @@ def _run_graphed(dev: torch.device, key: tuple, inputs: list, ts: list, lrs: dic
 
 @dataclasses.dataclass(frozen=True)
 class Step4DStatics:
-    """train_step_4d's fixed configuration."""
+    """The fixed configuration of a batch step: train_step_4d's (cfg a
+    Model4DConfig, opt an Optimization4DConfig) or train_step_deform's (a
+    ModelDeformConfig and an OptimizationDeformConfig)."""
 
-    cfg: Model4DConfig
-    opt: Optimization4DConfig
+    cfg: Model4DConfig | ModelDeformConfig
+    opt: Optimization4DConfig | OptimizationDeformConfig
     spatial_lr_scale: float
     capacity: int  # binning instance-buffer capacity of each view
     kernel: KernelConfig | None = None  # tile shape and sort (default 32x16)
 
 
 class Step4DOutputs(NamedTuple):
-    model: Gaussian4DModel
+    model: Gaussian4DModel | DeformModel
     opt_state: RAdamState  # Adam's moments and step
     loss: torch.Tensor  # [] the mean of the views' losses
     visibility: torch.Tensor  # [P] bool: visible in some view
@@ -429,35 +436,37 @@ def _update_stats_4d(model: Gaussian4DModel, radii, m2d_grad, densify: bool) -> 
     return model.replace(stats=stats)
 
 
-def _step4d(model: Gaussian4DModel, opt_state: RAdamState, cams: list, gts: list, ts: list, bg,
-            iteration: int, lrs: dict, statics: Step4DStatics, dev,
-            in_place: bool) -> Step4DOutputs:
-    """train_step_4d's work on `dev`, run eagerly or under a graph's
-    capture: ts and lrs as render4d and adam_update take them."""
+def _batch_step(model, opt_state: RAdamState, cams: list, gts: list, ts: list, bg,
+                iteration: int, lrs: dict, statics, dev, in_place: bool, render_view, view_loss,
+                extra_loss=None, rows=None) -> Step4DOutputs:
+    """A step of a batch of views on `dev`, run eagerly or under a graph's
+    capture: each view rendered at its own time by render_view (render4d's
+    signature), the mean of view_loss(image, gt) over the views plus
+    extra_loss(params) if given, one backward, Adam on the gradients (those
+    of `rows`, all by default, masked to the active rows; every NaN
+    zeroed), the batch's statistics, the overflow gate. ts and lrs as
+    render_view and adam_update take them."""
     params = {k: v.detach().requires_grad_(True) for k, v in model.params.items()}
     # one screen-space hook for every view: its gradient is the views' sum
     mean2d_offset = torch.zeros((model.capacity, 3), device=dev, requires_grad=True)
     current = model.replace(params=params)
     losses, radii, totals = [], [], []
     for cam, gt, t in zip(cams, gts, ts):
-        res = render4d(cam, current, statics.cfg, t=t, bg=bg, capacity=statics.capacity,
-                       mean2d_offset=mean2d_offset, kernel_cfg=statics.kernel, device=dev)
+        res = render_view(cam, current, statics.cfg, t=t, bg=bg, capacity=statics.capacity,
+                          mean2d_offset=mean2d_offset, kernel_cfg=statics.kernel, device=dev)
         with span("ex4dgs.loss"):
-            losses.append(combined_loss(res.render, gt, statics.opt.lambda_dssim)[0])
+            losses.append(view_loss(res.render, gt))
         radii.append(res.radii)
         totals.append(res.binning_total)
     loss = torch.stack(losses).mean()
+    if extra_loss is not None:
+        loss = loss + extra_loss(params)
     with span("ex4dgs.backward"):
         leaves = [*params.values(), mean2d_offset]
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
     with torch.no_grad(), span("ex4dgs.update"):
-        mask = model.mask
-        pgrads = {}
-        for (k, p), g in zip(params.items(), grads):
-            mb = mask.view(-1, *([1] * (p.ndim - 1)))
-            g = torch.where(mb, g, torch.zeros((), device=dev))
-            pgrads[k] = torch.where(torch.isnan(g), torch.zeros((), device=dev), g)
+        pgrads = masked_row_grads(params, grads, model.mask, rows)
         new_params, new_state = adam_update(model.params, pgrads, opt_state, lrs,
                                             statics.opt.adam_eps)
         new_model = _update_stats_4d(model.replace(params=new_params), radii, grads[-1],
@@ -470,6 +479,56 @@ def _step4d(model: Gaussian4DModel, opt_state: RAdamState, cams: list, gts: list
     return Step4DOutputs(model=out_model, opt_state=out_state, loss=loss.detach(),
                          visibility=visible, binning_total=total,
                          nan_flag=torch.isnan(out_model.params["xyz"]).any())
+
+
+def _step4d(model: Gaussian4DModel, opt_state: RAdamState, cams: list, gts: list, ts: list, bg,
+            iteration: int, lrs: dict, statics: Step4DStatics, dev,
+            in_place: bool) -> Step4DOutputs:
+    """train_step_4d's work on `dev`, run eagerly or under a graph's
+    capture: ts and lrs as render4d and adam_update take them."""
+    return _batch_step(model, opt_state, cams, gts, ts, bg, iteration, lrs, statics, dev,
+                       in_place, render4d,
+                       lambda img, gt: combined_loss(img, gt, statics.opt.lambda_dssim)[0])
+
+
+def _train_views(model, adam_state: RAdamState, cams, gts, ts, bg, iteration: int, lrs: dict,
+                 statics, dev, work) -> Step4DOutputs:
+    """A batch step (work: _step4d's signature) eagerly on the CPU, as one
+    CUDA graph on a card (`_run_graphed`): the views' cameras and images,
+    bg, the times and the rates are staged into the graph's inputs."""
+    bg = upload(bg, dev, torch.float32)
+    if dev.type != "cuda":
+        return work(model, adam_state, cams, gts, ts, bg, iteration, lrs, statics, dev,
+                    in_place=False)
+    dev = graphs.card(dev)
+    key = _graph_key_4d(model, adam_state, cams, gts, bg, iteration, statics)
+    n = len(cams)
+
+    def body(inputs, scalars):
+        k = len(graphs.CAMERA_TENSORS)
+        views = [dataclasses.replace(c, **dict(zip(graphs.CAMERA_TENSORS,
+                                                   inputs[k * i:k * i + k])))
+                 for i, c in enumerate(cams)]
+        images = inputs[k * n:k * n + n]
+        return work(model, adam_state, views, images, [scalars[i] for i in range(n)],
+                    inputs[-1], iteration, _rates(scalars, lrs, first=n), statics, dev,
+                    in_place=True)
+
+    def small(o: Step4DOutputs) -> Step4DOutputs:
+        return Step4DOutputs(model=model, opt_state=adam_state, loss=o.loss.clone(),
+                             visibility=o.visibility.clone(),
+                             binning_total=o.binning_total.clone(), nan_flag=o.nan_flag.clone())
+
+    inputs = [getattr(c, f) for c in cams for f in graphs.CAMERA_TENSORS] + list(gts) + [bg]
+    return _run_graphed(dev, key, inputs, ts, lrs, body, small)
+
+
+def _views(cams, gts, ts) -> tuple[list, list, list]:
+    cams, gts, ts = list(cams), list(gts), list(ts)
+    if not len(cams) == len(gts) == len(ts) > 0:
+        raise ValueError(f"{len(cams)} cameras, {len(gts)} images and {len(ts)} times: "
+                         "one of each per view")
+    return cams, gts, ts
 
 
 def train_step_4d(model: Gaussian4DModel, adam_state: RAdamState, cams, gts, ts, bg, iteration,
@@ -491,37 +550,56 @@ def train_step_4d(model: Gaussian4DModel, adam_state: RAdamState, cams, gts, ts,
     with span("ex4dgs.train_step"):
         dev = resolve_device(device)
         iteration = int(iteration)
-        cams, gts, ts = list(cams), list(gts), list(ts)
-        if not len(cams) == len(gts) == len(ts) > 0:
-            raise ValueError(f"{len(cams)} cameras, {len(gts)} images and {len(ts)} times: "
-                             "one of each per view")
+        cams, gts, ts = _views(cams, gts, ts)
         lrs = fourdgs_lrs(statics.opt, statics.spatial_lr_scale, iteration)
-        bg = upload(bg, dev, torch.float32)
-        if dev.type != "cuda":
-            return _step4d(model, adam_state, cams, gts, ts, bg, iteration, lrs, statics, dev,
-                           in_place=False)
-        dev = graphs.card(dev)
-        key = _graph_key_4d(model, adam_state, cams, gts, bg, iteration, statics)
-        n = len(cams)
+        return _train_views(model, adam_state, cams, gts, ts, bg, iteration, lrs, statics, dev,
+                            _step4d)
 
-        def body(inputs, scalars):
-            k = len(graphs.CAMERA_TENSORS)
-            views = [dataclasses.replace(c, **dict(zip(graphs.CAMERA_TENSORS,
-                                                       inputs[k * i:k * i + k])))
-                     for i, c in enumerate(cams)]
-            images = inputs[k * n:k * n + n]
-            return _step4d(model, adam_state, views, images, [scalars[i] for i in range(n)],
-                           inputs[-1], iteration, _rates(scalars, lrs, first=n), statics, dev,
-                           in_place=True)
 
-        def small(o: Step4DOutputs) -> Step4DOutputs:
-            return Step4DOutputs(model=model, opt_state=adam_state, loss=o.loss.clone(),
-                                 visibility=o.visibility.clone(),
-                                 binning_total=o.binning_total.clone(),
-                                 nan_flag=o.nan_flag.clone())
+# ---------------------------------------------------------------------------
+# 4D-GS (Wu et al.): a deformation field, a batch of views, Adam
+# ---------------------------------------------------------------------------
 
-        inputs = [getattr(c, f) for c in cams for f in graphs.CAMERA_TENSORS] + gts + [bg]
-        return _run_graphed(dev, key, inputs, ts, lrs, body, small)
+def _deform_regularizers(params: dict, opt: OptimizationDeformConfig):
+    """The HexPlane's regularizers (`ops/losses.py::plane_regularizers`)."""
+    keys = [k for k in params if k.startswith("grid.")]
+    with span("ex4dgs.plane_reg"):
+        return plane_regularizers([params[k] for k in keys],
+                                  [time_plane(int(k.split(".")[2])) for k in keys],
+                                  opt.plane_tv_weight, opt.time_smoothness_weight,
+                                  opt.l1_time_planes)
+
+
+def _step_deform(model: DeformModel, opt_state: RAdamState, cams: list, gts: list, ts: list,
+                 bg, iteration: int, lrs: dict, statics: Step4DStatics, dev,
+                 in_place: bool) -> Step4DOutputs:
+    """train_step_deform's work on `dev`, run eagerly or under a graph's
+    capture: ts and lrs as render_deform and adam_update take them."""
+    return _batch_step(model, opt_state, cams, gts, ts, bg, iteration, lrs, statics, dev,
+                       in_place, render_deform, l1_loss,
+                       lambda p: _deform_regularizers(p, statics.opt), ROW_KEYS)
+
+
+def train_step_deform(model: DeformModel, adam_state: RAdamState, cams, gts, ts, bg, iteration,
+                      statics: Step4DStatics, device=None) -> Step4DOutputs:
+    """One fine-stage iteration of 4D-GS's recipe (statics.cfg a
+    ModelDeformConfig, statics.opt an OptimizationDeformConfig) on the
+    views (cams[i], gts[i] [H, W, 3], ts[i] the normalised time in [0, 1)),
+    all of one size: each view deformed to its time and rendered
+    (`render_deform`), the mean of the views' L1 losses plus the planes'
+    regularizers, one backward, Adam over the eight groups at their
+    scheduled rates (`deform_lrs`; the Gaussian rows' gradients masked to
+    the active rows, every NaN zeroed), the batch's statistics, and the
+    overflow gate on the device, as train_step_4d. On CUDA one CUDA graph
+    (`_run_graphed`) that updates the state passed in in place and reads
+    nothing back; on the CPU eager, returning new state."""
+    with span("ex4dgs.train_step"):
+        dev = resolve_device(device)
+        iteration = int(iteration)
+        cams, gts, ts = _views(cams, gts, ts)
+        lrs = deform_lrs(statics.opt, statics.spatial_lr_scale, iteration, model.params)
+        return _train_views(model, adam_state, cams, gts, ts, bg, iteration, lrs, statics, dev,
+                            _step_deform)
 
 
 def _graph_key_4d(model, adam_state, cams, gts, bg, iteration, statics) -> tuple:
